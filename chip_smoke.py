@@ -20,8 +20,10 @@ Phases, one line each; any failure exits non-zero and prints no result:
              the bloom store's bank probe (``bloom_probe``)
 6. serving   zipfian read-heavy traffic with compaction, replayed against
              a dict
-7. times     CUDA-event times of each kernel and its plain version at the
-             main path's shapes, with their bounds
+7. times     each kernel's device time (20 calls in one CUDA graph,
+             median of 5 replay windows of >= 5 ms), its time per eager
+             call and its plain version's at the main path's shapes,
+             beside bounds counted from the work these keys need
 
 Then one JSON line of kernel records, the card line and the result line.
 Launch counts are set to 0 just before each path is driven and read just
@@ -33,7 +35,9 @@ Usage: python3 chip_smoke.py
 from __future__ import annotations
 
 import json
+import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -46,15 +50,23 @@ SMS, INT32_LANES = 132, 64         # INT32 lanes per SM per clock (Hopper)
 # the main path's size: 16 flushes x 500,000 keys, 1,048,576-key batches
 FLUSHES, PER_TABLE, QUERIES = 16, 500_000, 1_048_576
 
-# Integer instructions per key, counted from csrc/ (probe_common.cuh,
-# lsm_probe.cu, bloom_probe.cu): hash_u32 = 20 (two fmix32 of 8, three
-# xors, one multiply); a fuse stage 1 = 130 (start hash + 3 slot hashes
-# with index arithmetic and gathers + fingerprint hash and compare), a
-# uniform one 108; othello_hit = 59 (two hashes, two bit gathers); a
-# stage-1 chain reads 11 params (+21) and every table pays ~9 of loop and
-# dispatch; a Bloom hash costs 31. Per key ~8 more (index, loads, stores).
-OPS_STAGE1 = {"fuse": 130, "uniform": 108}
-OPS_OTHELLO, OPS_PARAMS, OPS_TABLE, OPS_KEY, OPS_BLOOM_HASH = 59, 21, 9, 8, 31
+# Integer instructions that each function needs, counted from csrc/
+# (probe_common.cuh, lsm_probe.cu, bloom_probe.cu). Loads go through the
+# load/store unit, and values that depend only on a table (seed*golden,
+# seed*7919+i, ...) are made once per table, so neither is counted.
+# fmix32 = 8 (three shift-xor pairs, two multiplies); hash_u32 = 18 (two
+# fmix32, two xors); fastrange = 1 (__umulhi). A fuse stage 1 = 108: the
+# window start (hash, fastrange), 3 slots of hash, fastrange, 3 index ops
+# and a xor, and the fingerprint (hash, masked xor, compare); a uniform one
+# = 83 (one index op per slot, no window). The Othello stage 2 = 48: two
+# hash + fastrange, two word indices (shift, add), two bit shifts (mask,
+# shift), xor and test; it is needed only where stage 1 passes. A Bloom
+# probe = 24 (hash, fastrange, word index, bit test) and is needed up to
+# the key's first zero bit. Each table costs 2 to fold its decision into
+# the mask, each key 5 (its index, the bound check, the outputs).
+OPS_STAGE1 = {"fuse": 108, "uniform": 83}
+OPS_OTHELLO, OPS_BLOOM_PROBE, OPS_TABLE, OPS_KEY = 48, 24, 2, 5
+TIME_WINDOWS, WINDOW_MS = 5, 5.0   # median of 5 windows of >= 5 ms each
 
 
 def fail(msg: str) -> None:
@@ -74,22 +86,11 @@ def smi(query: str) -> str:
     return out.strip().splitlines()[0]
 
 
-def lsm_ops_per_key(chains) -> int:
-    ops = OPS_KEY
-    for c in chains:
-        ops += OPS_TABLE
-        if c[0] == "chain" and c[1] is not None:
-            ops += OPS_STAGE1[c[1][0]] + OPS_OTHELLO + OPS_PARAMS
-        elif c[0] == "chain":
-            ops += OPS_OTHELLO + 5
-        elif c[0] == "bloom":
-            ops += OPS_BLOOM_HASH * c[1][1] + 4
-    return ops
-
-
-def chain_ops_per_key(chain) -> int:
-    s1 = OPS_STAGE1[chain[1][0]] if chain[1] is not None else 0
-    return OPS_KEY + s1 + OPS_OTHELLO + 2
+def chain_ops(chain, n_keys: int, n_pass: int) -> int:
+    """Integer ops one 'chain' table needs for ``n_keys`` keys, of which
+    ``n_pass`` pass its stage 1 (all of them without a stage 1)."""
+    s1 = 0 if chain[1] is None else OPS_STAGE1[chain[1][0]] * n_keys
+    return s1 + OPS_OTHELLO * n_pass
 
 
 def bound(n_bytes: float, n_ops: float, int32_per_s: float) -> tuple[float, str]:
@@ -122,18 +123,44 @@ def main() -> None:
         for fn in kernels.values():
             fn.launches = 0
 
-    def cuda_ms(fn, iters: int = 20, warmup: int = 2) -> float:
-        for _ in range(warmup):
+    def cuda_ms(fn, windows: int = TIME_WINDOWS) -> tuple[float, list]:
+        """Median ms per call over ``windows`` CUDA-event windows, each of
+        enough warm calls to cover WINDOW_MS; also every window's ms."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
             fn()
         torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
+        est_ms = (time.perf_counter() - t0) * 1e3 / 3
+        iters = max(3, math.ceil(WINDOW_MS / est_ms))
+        per = []
+        for _ in range(windows):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            per.append(start.elapsed_time(end) / iters)
+        return statistics.median(per), per
+
+    def graph_ms(fn, calls: int = 20) -> tuple[float, list]:
+        """Device ms per call: ``calls`` calls captured in one CUDA graph,
+        so no host launch work sits between them, replayed in
+        ``cuda_ms`` windows."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
             fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / iters
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                fn()
+        ms, per = cuda_ms(graph.replay)
+        return ms / calls, [t / calls for t in per]
 
     t_start = time.monotonic()
     dev = torch.device("cuda")
@@ -291,30 +318,43 @@ def main() -> None:
     # -- 7. times at the main path's shapes ------------------------------------
     hi, lo = common.key_lanes(exist, dev)
     n = hi.numel()
-    gb_args = (gen.tables_dev, hi, lo, gen.params_dev)
     chain0 = gen.chains[0]
     lay0 = store.service.bank.layouts[0]
     bstate = grid["bloom-1x"].service.state
     blay = bstate.bank.layouts[0]
     bargs = dict(m_bits=blay.m_bits, k=blay.k, seed=blay.seed,
                  offset=blay.offset)
+    # the work these keys need: stage 1 passes per table (the probes
+    # output of lsm_chain_probe: 2 where stage 1 passed) and Bloom probes
+    # up to each key's first zero bit (keys alive after j probes, j < k)
+    check(all(c[0] == "chain" for c in gen.chains), "main store is chained")
+    passes = [int((lsm_chain_probe(gen.tables_dev, hi, lo, chain=c)[1] == 2)
+                  .sum()) if c[1] is not None else n for c in gen.chains]
+    bloom_probes = sum(int(bloom_probe_ref(bstate.tables, hi, lo,
+                                           **dict(bargs, k=j)).sum())
+                       for j in range(blay.k))
     runs = {
         "lsm_probe": (
-            lambda: lsm_probe(*gb_args, chains=gen.chains, desc=gen.desc_dev),
-            lambda: lsm_probe_ref(*gb_args, chains=gen.chains),
-            8 * n + 8 * n + gen.tables.nbytes + gen.params.nbytes
-            + gen.desc_dev.numel() * 4,
-            lsm_ops_per_key(gen.chains) * n),
+            lambda: lsm_probe(gen.tables_dev, hi, lo, gen.desc_dev,
+                              chains=gen.chains),
+            lambda: lsm_probe_ref(gen.tables_dev, hi, lo, chains=gen.chains),
+            8 * n + 8 * n + gen.tables.nbytes + gen.desc_dev.numel() * 4,
+            (OPS_KEY + OPS_TABLE * gen.n_tables) * n
+            + sum(chain_ops(c, n, p) for c, p in zip(gen.chains, passes))),
         "lsm_chain_probe": (
             lambda: lsm_chain_probe(gen.tables_dev, hi, lo, chain=chain0),
             lambda: lsm_chain_probe_ref(gen.tables_dev, hi, lo, chain=chain0),
-            16 * n + 4 * lay0.width, chain_ops_per_key(chain0) * n),
+            16 * n + 4 * lay0.width,
+            OPS_KEY * n + chain_ops(chain0, n, passes[0])),
         "bloom_probe": (
             lambda: (bloom_probe(bstate.tables, hi, lo, **bargs),),
             lambda: (bloom_probe_ref(bstate.tables, hi, lo, **bargs),),
             12 * n + 4 * ((blay.m_bits + 31) // 32),
-            (OPS_KEY + OPS_BLOOM_HASH * blay.k) * n),
+            OPS_KEY * n + OPS_BLOOM_PROBE * bloom_probes),
     }
+    print(f"work: stage 1 passes {sum(passes) / n:.6f} tables per key over "
+          f"{gen.n_tables} tables ({passes[0] / n:.6f} on table 0); bloom "
+          f"probes {bloom_probes / n:.6f} per key of k = {blay.k}", flush=True)
     sources = {"lsm_probe": ("src/repro_torch/csrc/lsm_probe.cu",
                              "src/repro/kernels/lsm_probe.py:270"),
                "lsm_chain_probe": ("src/repro_torch/csrc/lsm_probe.cu",
@@ -327,8 +367,9 @@ def main() -> None:
         err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
                   for g, w in zip(got, want))
         check(err == 0, f"{name}: kernel != plain version at the main shapes")
-        ms = cuda_ms(kern)
-        plain_ms = cuda_ms(plain, iters=3, warmup=1)
+        ms, per = graph_ms(kern)
+        eager_ms, _ = cuda_ms(kern)
+        plain_ms, _ = cuda_ms(plain, windows=1)
         bound_ms, bound_by = bound(n_bytes, n_ops, int32_per_s)
         src, replaces = sources[name]
         records.append({"name": name, "route": "cuda", "source": src,
@@ -336,13 +377,18 @@ def main() -> None:
                         "launches": main_launches[name], "max_abs_err": err,
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": None})
-        print(f"time {name}: {ms:.4f} ms kernel, {plain_ms:.3f} ms plain, "
-              f"bound {bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB, "
-              f"{n_ops / 1e9:.3f} G int ops) at {n} keys | {card}", flush=True)
-    gather_gb = 5 * 32 * gen.n_tables * n / 1e9
-    print(f"time lsm_probe gather sectors: {gather_gb:.2f} GB "
-          f"(5 x 32 B per chain table per key) = "
-          f"{gather_gb / (records[0]['ms'] / 1e3):.0f} GB/s achieved",
+        print(f"time {name}: {ms:.4f} ms kernel on the device (graph "
+              f"replay, median of windows "
+              f"{', '.join(f'{t:.4f}' for t in per)}), {eager_ms:.4f} ms "
+              f"per eager call (host launch path included), {plain_ms:.3f} "
+              f"ms plain, bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.3f} G int ops) at {n} "
+              f"keys | {card}", flush=True)
+    gathers = 3 * gen.n_tables * n + 2 * sum(passes)
+    gather_gb = 32 * gathers / 1e9
+    print(f"time lsm_probe gather sectors: {gather_gb:.2f} GB (32 B x "
+          f"{gathers / n:.3f} gathers per key: 3 per table, 2 per stage-1 "
+          f"pass) = {gather_gb / (records[0]['ms'] / 1e3):.0f} GB/s achieved",
           flush=True)
 
     def host_ms(fn, reps: int = 3) -> float:

@@ -3,16 +3,17 @@
 // Replaces the TPU kernel src/repro/kernels/bloom_probe.py:bloom_probe
 // (body _kernel -> kernels/common.py bloom_hit).
 //
-// What bounds it here: per key, k hashes (~20 integer ops each) and k
-// random bitmap-word gathers. With k ~ 10 that is ~230 integer ops per key
-// against 12 compulsory bytes per key (two key lanes in, one int32 out)
-// plus the bitmap once, so the INT32 pipes set the floor; each gather
-// costs a 32-byte sector, from L2 while the bitmap fits there.
+// What bounds it here: per key, up to k hashes (~25 integer ops each with
+// the bit test) and as many random bitmap-word gathers, against 12
+// compulsory bytes per key (two key lanes in, one int32 out) plus the
+// bitmap once. A stored key needs all k probes; a miss stops at its first
+// zero bit, about 2 probes on a half-full bitmap. So a batch of stored keys
+// is bound by the INT32 pipes and a batch of misses comes close to the
+// bytes; each gather costs a 32-byte sector, from L2 while the bitmap fits.
 //
 // What the design does about it: one thread per key over flat hi/lo lanes
-// (coalesced loads and stores), all k probes in registers, the bitmap read
-// through the read-only path. Like the TPU kernel it tests all k bits
-// without an early exit, so every key does the same work.
+// (coalesced loads and stores), the probes in registers with an exit at
+// the first zero bit, the bitmap read through the read-only path.
 #include <cuda_runtime.h>
 
 #include "probe_common.cuh"

@@ -45,17 +45,19 @@ __device__ __forceinline__ uint32_t word(const uint32_t* __restrict__ words,
   return __ldg(words + i);
 }
 
-// k-hash Bloom test: bit fastrange(hash(seed*1000+i), m_bits) for every i.
+// k-hash Bloom test: bit fastrange(hash(seed*1000+i), m_bits) for every i;
+// the first zero bit decides a miss, so later hashes are skipped.
 __device__ __forceinline__ bool bloom_hit(const uint32_t* __restrict__ words,
                                           uint32_t hi, uint32_t lo,
                                           uint32_t m_bits, uint32_t k,
                                           uint32_t seed, uint32_t offset) {
-  bool hit = true;
   for (uint32_t i = 0; i < k; ++i) {
     uint32_t idx = fastrange(hash_u32(hi, lo, seed * 1000u + i), m_bits);
-    hit &= ((word(words, offset + (idx >> 5)) >> (idx & 31u)) & 1u) != 0u;
+    if (((word(words, offset + (idx >> 5)) >> (idx & 31u)) & 1u) == 0u) {
+      return false;
+    }
   }
-  return hit;
+  return true;
 }
 
 // XOR of the key's three Bloomier slots. Uniform layout: slot i lies in

@@ -36,7 +36,7 @@ I64 = ctypes.c_int64
 # C signature of every entry point: (source stem, symbol) -> argtypes
 SIGNATURES = {
     ("lsm_probe", "lsm_probe_launch"):
-        [P, P, P, I32, P, P, P, P, I64, P],
+        [P, P, I32, P, P, P, P, I64, P],
     ("lsm_probe", "lsm_chain_probe_launch"):
         [P, P, P, P, P, I32, I32, U32, U32, U32, U32, U32, U32,
          U32, U32, U32, U32, U32, I64, P],

@@ -24,11 +24,11 @@ JAX package's, unchanged):
   ('bloom', (m_bits, k, seed, offset))      — per-table Bloom baseline
   ('always',)                               — no filter (always read)
 
-Chain tables with a stage 1 read their fields from the packed ``params``
-lanes (``pack_chain_params``, byte-identical to the JAX package's and owned
-by each published generation); everything else travels in the small int32
-descriptor array the kernel takes (``chain_descriptors``), so a new
-generation needs new inputs, never a new build.
+The CUDA kernel takes the tables as one int32 [T, DESC_K] descriptor
+array (``chain_descriptors``) holding every table's tag and fields, so a
+new generation needs new inputs, never a new build. ``pack_chain_params``
+(the JAX package's per-generation params lanes) is kept byte-identical
+for host parity only; no kernel reads it.
 
 On a CUDA tensor each wrapper launches its kernel (``csrc/lsm_probe.cu``)
 and counts the launch; on a CPU tensor it runs the plain version.
@@ -41,14 +41,19 @@ import torch
 from repro_torch.core import hashing as H
 from repro_torch.core.hashing import MASK32
 from . import _build
-from .common import bloom_hit, check_probe_args, gather, to_device, xor_lookup
+from .common import bloom_hit, check_probe_args, gather, xor_lookup
 
 MAX_TABLES = 32     # hits_mask is an int32 bitmask
 
 _N_FIELDS = 11      # params rows per chain group, see pack_chain_params
 
-# kernel descriptor rows: [tag, has_stage1, fuse, f0, f1, f2, f3, f4]
-DESC_K = 8
+# kernel descriptor row, int32 [DESC_K] (uint32 bit patterns):
+#   0 tag  1 has stage 1  2 fuse
+#   chain:  3 stage-1 seed  4 seg_len  5 max(n_seg-2, 1)  6 stage-1 offset
+#           7 alpha mask  8 fingerprint seed (3..8 zero without stage 1)
+#           9 ma  10 mb  11 othello seed  12 offset A  13 offset B
+#   bloom:  3 m_bits  4 k  5 seed  6 offset
+DESC_K = 16
 TAG_CHAIN, TAG_BLOOM, TAG_ALWAYS = 0, 1, 2
 _MODES = ("uniform", "fuse")
 
@@ -56,8 +61,8 @@ _MODES = ("uniform", "fuse")
 def _group_chains(chains: tuple) -> tuple[dict, list]:
     """Partition table indices: two-stage chains grouped by slot-layout
     mode, everything else (bloom / always / chain without stage 1) apart.
-    Shared by params packing, the kernel descriptors and the plain version
-    so field order always agrees."""
+    Sets the field order of ``pack_chain_params``, as the JAX package's
+    does."""
     groups: dict[str, list[int]] = {}
     scalar: list[int] = []
     for t, chain in enumerate(chains):
@@ -108,32 +113,34 @@ def pack_chain_params(chains: tuple) -> np.ndarray:
     return flat
 
 
+def desc_row(chain: tuple) -> list[int]:
+    """One table's kernel descriptor row (see DESC_K) as uint32 values."""
+    row = [0] * DESC_K
+    tag = chain[0]
+    if tag == "chain":
+        _, xp, op = chain
+        if xp is not None:
+            mode, seed, seg_len, n_seg, alpha, fp_seed, offset = xp
+            if mode not in _MODES:
+                raise ValueError(f"unknown slot-layout mode {mode!r}")
+            row[1:9] = [1, _MODES.index(mode), seed, seg_len,
+                        max(n_seg - 2, 1), offset, (1 << alpha) - 1, fp_seed]
+        row[9:14] = op
+    elif tag == "bloom":
+        row[0] = TAG_BLOOM
+        row[3:7] = chain[1]
+    elif tag == "always":
+        row[0] = TAG_ALWAYS
+    else:
+        raise ValueError(f"unknown chain tag {tag!r}")
+    return [int(v) & MASK32 for v in row]
+
+
 def chain_descriptors(chains: tuple) -> np.ndarray:
-    """int32 [T, DESC_K] kernel descriptors (uint32 bit patterns):
-    chain + stage 1 -> (params index of field 0, field stride); chain
-    without stage 1 -> its Othello fields; bloom -> its four fields."""
-    groups, scalar = _group_chains(chains)
-    desc = np.zeros((len(chains), DESC_K), np.uint32)
-    base = 0
-    for mode, ts in groups.items():
-        if mode not in _MODES:
-            raise ValueError(f"unknown slot-layout mode {mode!r}")
-        for j, t in enumerate(ts):
-            desc[t, :5] = (TAG_CHAIN, 1, _MODES.index(mode), base + j, len(ts))
-        base += _N_FIELDS * len(ts)
-    for t in scalar:
-        chain = chains[t]
-        if chain[0] == "chain":
-            desc[t, 0] = TAG_CHAIN
-            desc[t, 3:8] = [int(v) & MASK32 for v in chain[2]]
-        elif chain[0] == "bloom":
-            desc[t, 0] = TAG_BLOOM
-            desc[t, 3:7] = [int(v) & MASK32 for v in chain[1]]
-        elif chain[0] == "always":
-            desc[t, 0] = TAG_ALWAYS
-        else:
-            raise ValueError(f"unknown chain tag {chain[0]!r}")
-    return desc.view(np.int32)
+    """int32 [T, DESC_K] kernel descriptors of ``chains`` (uint32 bit
+    patterns), one ``desc_row`` per table."""
+    rows = [desc_row(c) for c in chains]
+    return np.array(rows, np.uint32).reshape(len(chains), DESC_K).view(np.int32)
 
 
 def _check_chains(chains: tuple) -> None:
@@ -183,56 +190,14 @@ def _table_hit(words, hi, lo, chain) -> torch.Tensor:
     raise ValueError(f"unknown chain tag {tag!r}")
 
 
-def _grouped_chain_hits(words, params, hi, lo, base: int, n_t: int,
-                        mode: str) -> torch.Tensor:
-    """All ``n_t`` two-stage chain tables of one slot-layout mode at once
-    -> bool [n_t, *hi.shape], per-table fields broadcast as [n_t, 1, ...]
-    lanes sliced from the packed ``params`` (as the TPU kernel does)."""
-    lane = (n_t,) + (1,) * hi.dim()
-
-    def field(i):
-        return H.u32(params[base + i * n_t: base + (i + 1) * n_t]).reshape(lane)
-
-    hi, lo = hi[None], lo[None]
-    seeds, seg_len, offsets = field(0), field(1), field(2)
-    masks, fp_seeds = field(3), field(4)
-    if mode == "fuse":
-        start = H.t_fastrange(H.t_hash_u32(hi, lo, seeds * 7919 + 3), field(5))
-    elif mode == "uniform":
-        start = torch.zeros(lane, dtype=torch.int64, device=hi.device)
-    else:
-        raise ValueError(f"unknown slot-layout mode {mode!r}")
-    v = 0
-    for i in range(3):
-        h = H.t_fastrange(H.t_hash_u32(hi, lo, seeds * 7919 + i), seg_len)
-        v = v ^ gather(words, offsets + (start + i) * seg_len + h)
-    s1 = (v & masks) == (H.t_hash_u32(hi, lo, fp_seeds) & masks)
-    oth_seeds = field(6)
-    u = H.t_fastrange(H.t_hash_u32(hi, lo, oth_seeds * 3 + 1), field(7))
-    w = H.t_fastrange(H.t_hash_u32(hi, lo, oth_seeds * 3 + 2), field(8))
-    wa = gather(words, field(9) + (u >> 5))
-    wb = gather(words, field(10) + (w >> 5))
-    s2 = (((wa >> (u & 31)) ^ (wb >> (w & 31))) & 1) == 1
-    return s1 & s2
-
-
-def lsm_probe_ref(words, hi, lo, params, *, chains: tuple
+def lsm_probe_ref(words, hi, lo, *, chains: tuple
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of ``lsm_probe`` -> (first_hit, hits_mask) int32 of
     hi's shape."""
     _check_chains(chains)
     n = len(chains)
-    hits: list = [None] * n
-    groups, scalar = _group_chains(chains)
-    for t in scalar:
-        hits[t] = _table_hit(words, hi, lo, chains[t])
-    base = 0
-    for mode, ts in groups.items():
-        g = _grouped_chain_hits(words, params, hi, lo, base, len(ts), mode)
-        for j, t in enumerate(ts):
-            hits[t] = g[j]
-        base += _N_FIELDS * len(ts)
-    stack = torch.stack(hits).to(torch.int64)            # [T, *hi.shape]
+    stack = torch.stack([_table_hit(words, hi, lo, c) for c in chains]
+                        ).to(torch.int64)                # [T, *hi.shape]
     t_lane = torch.arange(n, device=hi.device).reshape((n,) + (1,) * hi.dim())
     mask = (stack << t_lane).sum(dim=0)
     mask = torch.where(mask >= 2 ** 31, mask - 2 ** 32, mask)
@@ -263,38 +228,31 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def lsm_probe(words, hi, lo, params=None, *, chains: tuple, desc=None
+def lsm_probe(words, hi, lo, desc, *, chains: tuple
               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """words: int32 [W] packed bank (uint32 bit patterns); hi/lo: int32 key
-    lanes of any shape (e.g. the JAX package's [R, 128] blocks); chains:
-    per-table descriptors, newest first. ``params`` is the generation's
-    ``pack_chain_params(chains)`` tensor (packed here when omitted) and
-    ``desc`` its ``chain_descriptors(chains)`` tensor (likewise). Returns
-    (first_hit, hits_mask) int32 of hi's shape."""
+    """words: int32 [W] packed bank; hi/lo: int32 key lanes of any shape
+    (e.g. the JAX package's [R, 128] blocks); desc: int32 [T, DESC_K]
+    ``chain_descriptors(chains)`` on the bank's device; chains: per-table
+    descriptors, newest first. Returns (first_hit, hits_mask) int32 of
+    hi's shape."""
     _check_chains(chains)
-    if params is None:
-        params = to_device(pack_chain_params(chains), words.device)
-    elif params.shape[0] != chain_params_len(chains):
-        raise ValueError(
-            f"params length {params.shape[0]} does not match chains "
-            f"(expected {chain_params_len(chains)})")
     check_probe_args(words, hi, lo)
-    check_probe_args(words, params)
-    if not words.is_cuda:
-        return lsm_probe_ref(words, hi, lo, params, chains=chains)
-    if desc is None:
-        desc = to_device(chain_descriptors(chains), words.device)
     check_probe_args(words, desc)
     if desc.shape != (len(chains), DESC_K):
-        raise ValueError(f"desc must be [{len(chains)}, {DESC_K}]")
-    words, params, desc = words.contiguous(), params.contiguous(), desc.contiguous()
+        raise ValueError(f"desc must be [{len(chains)}, {DESC_K}], "
+                         f"got {list(desc.shape)}")
+    if not words.is_cuda:
+        if not torch.equal(desc, torch.from_numpy(chain_descriptors(chains))):
+            raise ValueError("desc is not chain_descriptors(chains)")
+        return lsm_probe_ref(words, hi, lo, chains=chains)
+    words, desc = words.contiguous(), desc.contiguous()
     hi, lo = hi.contiguous(), lo.contiguous()
     first, mask = torch.empty_like(hi), torch.empty_like(hi)
     with torch.cuda.device(words.device):
         err = _build.lib("lsm_probe").lsm_probe_launch(
-            words.data_ptr(), params.data_ptr(), desc.data_ptr(), len(chains),
-            hi.data_ptr(), lo.data_ptr(), first.data_ptr(), mask.data_ptr(),
-            hi.numel(), _stream(words))
+            words.data_ptr(), desc.data_ptr(), len(chains), hi.data_ptr(),
+            lo.data_ptr(), first.data_ptr(), mask.data_ptr(), hi.numel(),
+            _stream(words))
     _build.check(err, "lsm_probe")
     lsm_probe.launches += 1
     return first, mask
@@ -313,23 +271,13 @@ def lsm_chain_probe(words, hi, lo, *, chain: tuple
                          f"got {chain[0]!r}")
     if not words.is_cuda:
         return lsm_chain_probe_ref(words, hi, lo, chain=chain)
-    _, xp, op = chain
-    if xp is None:
-        s1 = (0, 0, 0, 0, 0, 0, 0, 0)
-    else:
-        mode, seed, seg_len, n_seg, alpha, fp_seed, offset = xp
-        if mode not in _MODES:
-            raise ValueError(f"unknown slot-layout mode {mode!r}")
-        s1 = (1, _MODES.index(mode), seed & MASK32, seg_len,
-              max(n_seg - 2, 0), offset, (1 << alpha) - 1, fp_seed & MASK32)
-    ma, mb, oseed, off_a, off_b = op
+    fields = desc_row(chain)[1:14]      # has stage 1 .. offset B
     words, hi, lo = words.contiguous(), hi.contiguous(), lo.contiguous()
     member, probes = torch.empty_like(hi), torch.empty_like(hi)
     with torch.cuda.device(words.device):
         err = _build.lib("lsm_probe").lsm_chain_probe_launch(
             words.data_ptr(), hi.data_ptr(), lo.data_ptr(), member.data_ptr(),
-            probes.data_ptr(), *s1, ma, mb, oseed & MASK32, off_a, off_b,
-            hi.numel(), _stream(words))
+            probes.data_ptr(), *fields, hi.numel(), _stream(words))
     _build.check(err, "lsm_chain_probe")
     lsm_chain_probe.launches += 1
     return member, probes

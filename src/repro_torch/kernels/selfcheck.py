@@ -7,7 +7,8 @@ Othello and Bloom seeds of 2**31 and above, so seed arithmetic wraps
 mod 2**32. ``run_edge_checks`` launches each kernel on those banks at
 T ∈ {1, 16, 32} tables and counts the outputs that differ from the plain
 version on the same inputs (integer outputs: exact equality). The card's
-test file and ``chip_smoke.py`` both run it.
+test file and ``chip_smoke.py`` both run it; the CPU parity tests probe
+the same banks with the JAX package's kernels.
 """
 from __future__ import annotations
 
@@ -23,8 +24,8 @@ from repro_torch.core.tables import (BloomTable, LsmChainLayout, OthelloTable,
                                      concat_tables)
 from . import common
 from .bloom_probe import bloom_probe, bloom_probe_ref
-from .lsm_probe import (lsm_chain_probe, lsm_chain_probe_ref, lsm_probe,
-                        lsm_probe_ref, pack_chain_params)
+from .lsm_probe import (chain_descriptors, lsm_chain_probe,
+                        lsm_chain_probe_ref, lsm_probe, lsm_probe_ref)
 
 KINDS = ("fuse", "uniform", "nos1", "bloom", "always")
 
@@ -60,21 +61,23 @@ def chain_of(layout) -> tuple:
 
 
 def edge_bank(kinds, per: int = 1000, seed: int = 0):
-    """(bank uint32, chains, query keys) for tables of ``kinds``, newest
-    first; the keys hold every table's own keys, misses and the lane
-    extremes 0 and 2**64-1."""
+    """(bank uint32, chains, query keys, layouts) for tables of ``kinds``,
+    newest first (layout None for an always-read table); the keys hold
+    every table's own keys, misses and the lane extremes 0 and
+    2**64-1."""
     keys = H.random_keys(per * (len(kinds) + 4), seed=seed)
     filters = [_filter(k, t, keys[t * per:(t + 1) * per],
                        keys[(t + 1) * per:(t + 4) * per])
                for t, k in enumerate(kinds)]
-    tables, lays = concat_tables([f.to_tables() for f in filters
-                                  if f is not None])
-    lays = iter(lays)
-    chains = tuple(("always",) if f is None else chain_of(next(lays))
-                   for f in filters)
+    tables, packed = concat_tables([f.to_tables() for f in filters
+                                    if f is not None])
+    packed = iter(packed)
+    lays = tuple(None if f is None else next(packed) for f in filters)
+    chains = tuple(("always",) if lay is None else chain_of(lay)
+                   for lay in lays)
     q = np.concatenate([keys[:len(kinds) * per:2], keys[-2 * per:],
                         np.array([0, 2**64 - 1, 2**32 - 1, 2**32], np.uint64)])
-    return tables, chains, q
+    return tables, chains, q, lays
 
 
 def _differ(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -83,17 +86,17 @@ def _differ(a: torch.Tensor, b: torch.Tensor) -> int:
 
 def check_lsm_probe(kinds, device, per: int = 1000, seed: int = 0) -> int:
     """Mismatching outputs of lsm_probe vs lsm_probe_ref (0 = agree)."""
-    tables, chains, q = edge_bank(kinds, per, seed)
+    tables, chains, q, _ = edge_bank(kinds, per, seed)
     words = common.to_device(tables, device)
     hi, lo = common.key_lanes(q, device)
-    params = common.to_device(pack_chain_params(chains), device)
-    got = lsm_probe(words, hi, lo, params, chains=chains)
-    want = lsm_probe_ref(words, hi, lo, params, chains=chains)
+    desc = torch.from_numpy(chain_descriptors(chains)).to(device)
+    got = lsm_probe(words, hi, lo, desc, chains=chains)
+    want = lsm_probe_ref(words, hi, lo, chains=chains)
     return sum(_differ(g, w) for g, w in zip(got, want))
 
 
 def check_lsm_chain_probe(kind, device, per: int = 1000, seed: int = 0) -> int:
-    tables, chains, q = edge_bank(("bloom", kind), per, seed)
+    tables, chains, q, _ = edge_bank(("bloom", kind), per, seed)
     words = common.to_device(tables, device)
     hi, lo = common.key_lanes(q, device)
     got = lsm_chain_probe(words, hi, lo, chain=chains[1])
@@ -102,7 +105,7 @@ def check_lsm_chain_probe(kind, device, per: int = 1000, seed: int = 0) -> int:
 
 
 def check_bloom_probe(device, per: int = 1000, seed: int = 0) -> int:
-    tables, chains, q = edge_bank(("fuse", "bloom"), per, seed)
+    tables, chains, q, _ = edge_bank(("fuse", "bloom"), per, seed)
     m_bits, k, bseed, offset = chains[1][1]
     words = common.to_device(tables, device)
     hi, lo = common.key_lanes(q, device)

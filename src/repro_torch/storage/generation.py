@@ -38,8 +38,8 @@ import torch
 from repro_torch.core.lsm import SSTable
 from repro_torch.core.tables import TABLE_ALIGN
 from repro_torch.kernels import common
-from repro_torch.kernels.lsm_probe import (DESC_K, chain_descriptors,
-                                           lsm_probe, pack_chain_params)
+from repro_torch.kernels.lsm_probe import (chain_descriptors, lsm_probe,
+                                           pack_chain_params)
 
 
 @dataclass(frozen=True)
@@ -49,8 +49,8 @@ class Generation:
     Everything a batched read needs travels together: the newest-first
     SSTable tuple, the per-table probe descriptors, the packed uint32 bank
     buffer (host numpy + device int32 tensor of the same bits), the
-    pre-packed per-table probe-param lanes (host + device) and the
-    kernel's table descriptors (device). ``bank_state`` keeps the
+    pre-packed per-table probe-param lanes (host, as the JAX package
+    publishes them) and the kernel's table descriptors (device). ``bank_state`` keeps the
     ``FilterService.BankState`` this generation published; it is ``None``
     for filterless stores and the empty generation."""
 
@@ -60,7 +60,6 @@ class Generation:
     tables: np.ndarray           # packed uint32 bank buffer (read-only)
     tables_dev: torch.Tensor     # int32 device mirror of ``tables``
     params: np.ndarray           # pack_chain_params(chains) (read-only)
-    params_dev: torch.Tensor     # int32 device mirror of ``params``
     desc_dev: torch.Tensor       # chain_descriptors(chains) on the device
     bank_state: object           # serving BankState | None
     filter_bits: int             # total filter bits at publish time
@@ -71,9 +70,10 @@ class Generation:
                ) -> "Generation":
         """Freeze (sstables, bank buffer, params) into a publishable
         generation: packs the probe-param lanes ONCE, marks every host
-        array read-only, and mirrors the buffers onto ``device``. When a
-        ``bank_state`` is supplied its device tensor of the same bank
-        buffer is reused — one host-to-device copy per publish, not two."""
+        array read-only, and mirrors the bank and the kernel's table
+        descriptors onto ``device``. When a ``bank_state`` is supplied its
+        device tensor of the same bank buffer is reused — one
+        host-to-device copy per publish, not two."""
         device = common.as_device(device)
         chains = tuple(chains)
         params = pack_chain_params(chains)
@@ -81,16 +81,13 @@ class Generation:
         tables.setflags(write=False)
         params.setflags(write=False)
         frozen = tuple(t.freeze() for t in sstables)
+        desc_dev = torch.from_numpy(chain_descriptors(chains)).to(device)
         tables_dev = getattr(bank_state, "tables", None)
         if tables_dev is None:
             tables_dev = common.to_device(tables, device)
-        desc = (chain_descriptors(chains) if chains
-                else np.zeros((0, DESC_K), np.int32))
         return cls(gen_id=gen_id, sstables=frozen, chains=chains,
-                   tables=tables, tables_dev=tables_dev,
-                   params=params, params_dev=common.to_device(params, device),
-                   desc_dev=torch.from_numpy(desc.copy()).to(device),
-                   bank_state=bank_state, filter_bits=int(filter_bits))
+                   tables=tables, tables_dev=tables_dev, params=params,
+                   desc_dev=desc_dev, bank_state=bank_state, filter_bits=int(filter_bits))
 
     @classmethod
     def from_numpy(cls, gen_id: int, sstables, chains, tables: np.ndarray,
@@ -144,8 +141,8 @@ class Generation:
         if not self.sstables:
             raise RuntimeError("no SSTables; flush first")
         hi, lo = common.key_lanes(keys, self.tables_dev.device)
-        first, mask = lsm_probe(self.tables_dev, hi, lo, self.params_dev,
-                                chains=self.chains, desc=self.desc_dev)
+        first, mask = lsm_probe(self.tables_dev, hi, lo, self.desc_dev,
+                                chains=self.chains)
         both = torch.stack([first, mask]).cpu().numpy()   # one host pull
         return both[0], both[1]
 

@@ -12,7 +12,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import hashing as H  # noqa: E402
 from repro_torch.kernels import selfcheck  # noqa: E402
 from repro_torch.kernels.bloom_probe import bloom_probe  # noqa: E402
-from repro_torch.kernels.lsm_probe import lsm_chain_probe, lsm_probe  # noqa: E402
+from repro_torch.kernels.lsm_probe import (chain_descriptors,  # noqa: E402
+                                           lsm_chain_probe, lsm_probe)
 from repro_torch.storage import LsmStore  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -71,13 +72,16 @@ def test_store_on_card_matches_store_on_cpu(cuda, kind):
 
 
 def test_kernels_reject_what_they_cannot_take(cuda):
-    tables, chains, q = selfcheck.edge_bank(("fuse",), per=200)
+    tables, chains, _, _ = selfcheck.edge_bank(("fuse",), per=200)
     words = torch.from_numpy(tables.view(np.int32).copy()).to(cuda)
+    desc = torch.from_numpy(chain_descriptors(chains)).to(cuda)
     hi = torch.zeros(16, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):        # key lanes on another device
-        lsm_probe(words, hi, hi.cpu(), chains=chains)
+        lsm_probe(words, hi, hi.cpu(), desc, chains=chains)
+    with pytest.raises(ValueError):        # descriptors on another device
+        lsm_probe(words, hi, hi, desc.cpu(), chains=chains)
     with pytest.raises(ValueError):
-        lsm_probe(words, hi, hi, chains=chains * 33)
+        lsm_probe(words, hi, hi, desc.repeat(33, 1), chains=chains * 33)
     empty = torch.zeros(0, dtype=torch.int32, device=cuda)
-    first, mask = lsm_probe(words, empty, empty, chains=chains)
+    first, mask = lsm_probe(words, empty, empty, desc, chains=chains)
     assert first.numel() == mask.numel() == 0

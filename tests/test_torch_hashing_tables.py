@@ -184,23 +184,28 @@ def test_pack_chain_params_byte_identical(n):
 
 
 def test_chain_descriptors_point_into_params():
+    """Each kernel descriptor row holds the fields ``pack_chain_params``
+    packs for its table (the params lanes the JAX kernel reads)."""
     chains = _mixed_chains()
     desc = L.chain_descriptors(chains).view(np.uint32)
     params = L.pack_chain_params(chains)
     assert desc.shape == (len(chains), L.DESC_K)
     groups, scalar = L._group_chains(chains)
+    base = 0
     for ts in groups.values():
-        for t in ts:
-            tag, has_s1, fuse, p0, stride = desc[t, :5]
-            assert (tag, has_s1, fuse) == (
+        for j, t in enumerate(ts):
+            assert (desc[t, 0], desc[t, 1], desc[t, 2]) == (
                 L.TAG_CHAIN, 1, chains[t][1][0] == "fuse")
-            fields = params[p0::stride][:11]
-            x, o = chains[t][1], chains[t][2]
-            assert list(fields) == [x[1], x[2], x[6], (1 << x[4]) - 1, x[5],
-                                    max(x[3] - 2, 1), o[2], o[0], o[1], o[3],
-                                    o[4]]
-    assert list(desc[3, :8]) == [L.TAG_CHAIN, 0, 0, *chains[3][2]]
-    assert list(desc[1, :7]) == [L.TAG_BLOOM, 0, 0, *chains[1][1]]
-    assert desc[4, 0] == L.TAG_ALWAYS
+            # params order: seed, seg_len, offset, alpha mask, fp seed,
+            # n_seg-2, othello seed, ma, mb, offset A, offset B
+            fields = params[base + j::len(ts)][:11]
+            assert list(desc[t, 3:14]) == [fields[i] for i in
+                                           (0, 1, 5, 2, 3, 4, 7, 8, 6, 9, 10)]
+        base += 11 * len(ts)
+    assert list(desc[3]) == [L.TAG_CHAIN, 0, 0, 0, 0, 0, 0, 0, 0,
+                             *chains[3][2], 0, 0]
+    assert list(desc[1]) == [L.TAG_BLOOM, 0, 0, *chains[1][1]] + [0] * 9
+    assert list(desc[4]) == [L.TAG_ALWAYS] + [0] * 15
+    assert L.chain_descriptors(()).shape == (0, L.DESC_K)
     with pytest.raises(ValueError):
         L.chain_descriptors((("nope",),))

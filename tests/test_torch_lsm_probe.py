@@ -1,6 +1,7 @@
 """Port parity, layer 2: the probe kernels' plain versions (what the CUDA
 kernels are held against on the card) against the JAX package's Pallas
-kernels in interpret mode, on banks the JAX package packed.
+kernels in interpret mode, on the edge banks the card's checks use
+(``repro_torch.kernels.selfcheck.edge_bank``).
 Tolerance: exact equality (integer outputs)."""
 import numpy as np
 import pytest
@@ -10,9 +11,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from repro.core import hashing as JH  # noqa: E402
-from repro.core import tables as JT  # noqa: E402
 from repro.core.bloom import BloomFilter as JBloom  # noqa: E402
-from repro.core.bloomier import XorFilter as JXor  # noqa: E402
 from repro.core.lsm import ChainedTableFilter as JChained  # noqa: E402
 from repro.core.othello import DynamicExactFilter as JDyn  # noqa: E402
 from repro.kernels import common as JC  # noqa: E402
@@ -22,62 +21,26 @@ from repro.kernels.lsm_probe import (lsm_probe as j_lsm_probe,  # noqa: E402
                                      othello_hit as j_othello_hit)
 from repro_torch.kernels import common as C  # noqa: E402
 from repro_torch.kernels import lsm_probe as L  # noqa: E402
+from repro_torch.kernels import selfcheck  # noqa: E402
 from repro_torch.kernels.bloom_probe import bloom_probe, bloom_probe_ref  # noqa: E402
 
 PER = 240
-KEYS = JH.random_keys(40 * PER + 3000, seed=21)
-
-
-def _filter(kind, t):
-    """One JAX-built per-table filter of ``kind`` over table t's keys;
-    stage-1 seeds wrap mod 2**32 (x7919), Othello and Bloom seeds >= 2**31."""
-    own = KEYS[t * PER:(t + 1) * PER]
-    rest = KEYS[(t + 1) * PER:(t + 4) * PER]
-    if kind == "fuse":
-        return JChained.build(own, rest, seed1=600_000 + 31 * t,
-                              seed2=2**31 + 7 * t)
-    if kind == "uniform":
-        f1 = JXor.build(own, 6, mode="uniform", seed=900_000 + t)
-        fp = rest[f1.query(rest)]
-        return JChained(f1=f1, f2=JDyn.build(own, fp, seed=2**32 - 4000 + t))
-    if kind == "nos1":
-        return JDyn.build(own, rest, seed=2**31 + 11 * t)
-    if kind == "bloom":
-        return JBloom.build(own, 0.02, seed=2**31 + 5 + t)
-    if kind == "always":
-        return None
-    raise ValueError(kind)
-
-
-def _chain(lay):
-    if isinstance(lay, JT.LsmChainLayout):
-        return lay.probe_params()
-    if isinstance(lay, JT.OthelloTable):
-        return ("chain", None, (lay.ma, lay.mb, lay.seed, lay.offset,
-                                lay.offset_b))
-    if isinstance(lay, JT.BloomTable):
-        return ("bloom", (lay.m_bits, lay.k, lay.seed, lay.offset))
-    raise TypeError(lay)
+SEED = 21
+# the JAX package's host filter class of each packed layout
+JAX_FILTER = {"LsmChainLayout": JChained, "OthelloTable": JDyn,
+              "BloomTable": JBloom}
 
 
 def _bank(kinds):
-    """(packed uint32 bank, chains, filters) for tables of ``kinds``,
-    newest first, packed by the JAX package."""
-    filters = [_filter(k, t) for t, k in enumerate(kinds)]
-    parts = [f.to_tables() for f in filters if f is not None]
-    tables, lays = JT.concat_tables(parts)
-    lays = iter(lays)
-    chains = tuple(("always",) if f is None else _chain(next(lays))
-                   for f in filters)
-    return tables, chains, filters
+    """(packed uint32 bank, chains, query keys, layouts) for tables of
+    ``kinds``, newest first: stage-1 seeds wrap mod 2**32 (x7919), Othello
+    and Bloom seeds >= 2**31, keys include the lane extremes."""
+    return selfcheck.edge_bank(kinds, per=PER, seed=SEED)
 
 
-def _queries(n_tables):
-    """Own keys of every table plus misses, blocked as the JAX kernels
-    take them."""
-    q = np.concatenate([KEYS[:n_tables * PER:3], KEYS[-1500:]])
-    hi2d, lo2d, n = JC.blockify(*JH.np_split_u64(q))
-    return q, hi2d, lo2d, n
+def _blocks(q):
+    """Query keys blocked as the JAX kernels take them."""
+    return JC.blockify(*JH.np_split_u64(q))
 
 
 def _t(a):
@@ -94,36 +57,43 @@ CASES = {
 }
 
 
+def _desc(chains):
+    return torch.from_numpy(L.chain_descriptors(chains))
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_lsm_probe_matches_jax_interpret(case):
-    tables, chains, _ = _bank(CASES[case])
-    _, hi2d, lo2d, n = _queries(len(chains))
+    tables, chains, q, _ = _bank(CASES[case])
+    hi2d, lo2d, n = _blocks(q)
     want_f, want_m = j_lsm_probe(tables, hi2d, lo2d, chains=chains,
                                  interpret=True)
     want_f, want_m = np.asarray(want_f), np.asarray(want_m)
-    words = _t(tables)
-    params = _t(L.pack_chain_params(chains))
+    words, desc = _t(tables), _desc(chains)
     # the [R, 128] blocks the JAX kernel takes, and flat lanes
-    got_f, got_m = L.lsm_probe(words, _t(hi2d), _t(lo2d), params,
+    got_f, got_m = L.lsm_probe(words, _t(hi2d), _t(lo2d), desc,
                                chains=chains)
     np.testing.assert_array_equal(got_f.numpy(), want_f)
     np.testing.assert_array_equal(got_m.numpy(), want_m)
     flat_f, flat_m = L.lsm_probe(words, _t(hi2d.ravel()), _t(lo2d.ravel()),
-                                 chains=chains)
+                                 desc, chains=chains)
     np.testing.assert_array_equal(flat_f.numpy(), want_f.ravel())
     np.testing.assert_array_equal(flat_m.numpy(), want_m.ravel())
-    assert (want_f[:n // 3] < len(chains)).any()       # something fired
+    assert (want_f.ravel()[:n] < len(chains)).any()    # something fired
 
 
 def test_lsm_probe_32_tables_matches_host_filters():
     kinds = ("fuse", "uniform", "nos1", "bloom") * 8
-    tables, chains, filters = _bank(kinds)
-    q, hi2d, lo2d, n = _queries(32)
+    tables, chains, q, lays = _bank(kinds)
+    hi2d, lo2d, n = _blocks(q)
+    # the JAX package's host filters, read back from the same bank
+    filters = [JAX_FILTER[type(lay).__name__].from_tables(tables, lay)
+               for lay in lays]
     hits = np.stack([f.query(q) for f in filters], axis=1)
     want_m = (hits.astype(np.int64) << np.arange(32)).sum(axis=1)
     want_m = want_m.astype(np.uint32).view(np.int32)   # bit 31 wraps
     want_f = np.where(hits.any(1), hits.argmax(1), 32)
-    got_f, got_m = L.lsm_probe(_t(tables), _t(hi2d), _t(lo2d), chains=chains)
+    got_f, got_m = L.lsm_probe(_t(tables), _t(hi2d), _t(lo2d), _desc(chains),
+                               chains=chains)
     np.testing.assert_array_equal(C.unblockify(got_m, n).numpy(), want_m)
     np.testing.assert_array_equal(C.unblockify(got_f, n).numpy(), want_f)
     assert (want_m < 0).any()                          # table 31 fired
@@ -131,9 +101,9 @@ def test_lsm_probe_32_tables_matches_host_filters():
 
 @pytest.mark.parametrize("kind", ["fuse", "uniform", "nos1"])
 def test_lsm_chain_probe_matches_jax_interpret(kind):
-    tables, chains, filters = _bank(("bloom", kind))
+    tables, chains, q, _ = _bank(("bloom", kind))
     chain = chains[1]
-    _, hi2d, lo2d, _ = _queries(2)
+    hi2d, lo2d, _ = _blocks(q)
     want = j_lsm_chain_probe(tables, hi2d, lo2d, chain=chain, interpret=True)
     got = L.lsm_chain_probe(_t(tables), _t(hi2d), _t(lo2d), chain=chain)
     for g, w in zip(got, want):
@@ -150,10 +120,10 @@ def test_lsm_chain_probe_matches_jax_interpret(kind):
 
 
 def test_bloom_probe_matches_jax_interpret():
-    tables, chains, _ = _bank(("fuse", "bloom"))
+    tables, chains, q, _ = _bank(("fuse", "bloom"))
     m_bits, k, seed, offset = chains[1][1]
     assert seed >= 2**31 and offset > 0
-    _, hi2d, lo2d, _ = _queries(2)
+    hi2d, lo2d, _ = _blocks(q)
     want = np.asarray(j_bloom_probe(tables, hi2d, lo2d, m_bits=m_bits, k=k,
                                     seed=seed, offset=offset, interpret=True))
     got = bloom_probe(_t(tables), _t(hi2d), _t(lo2d), m_bits=m_bits, k=k,
@@ -166,20 +136,21 @@ def test_bloom_probe_matches_jax_interpret():
 
 
 def test_wrappers_validate_their_arguments():
-    tables, chains, _ = _bank(("fuse", "bloom"))
-    words = _t(tables)
+    tables, chains, _, _ = _bank(("fuse", "bloom"))
+    words, desc = _t(tables), _desc(chains)
     z = torch.zeros(8, dtype=torch.int32)
     with pytest.raises(ValueError):
-        L.lsm_probe(words, z, z, chains=())
+        L.lsm_probe(words, z, z, desc[:0], chains=())
     with pytest.raises(ValueError):
-        L.lsm_probe(words, z, z, chains=chains * 17)
-    with pytest.raises(ValueError):                  # params of other chains
-        L.lsm_probe(words, z, z, torch.zeros(256, dtype=torch.int32),
-                    chains=chains)
+        L.lsm_probe(words, z, z, _desc(chains * 17), chains=chains * 17)
+    with pytest.raises(ValueError):                  # desc of other chains
+        L.lsm_probe(words, z, z, desc.flip(0), chains=chains)
+    with pytest.raises(ValueError):                  # desc of another shape
+        L.lsm_probe(words, z, z, desc[:, :8], chains=chains)
     with pytest.raises(TypeError):
-        L.lsm_probe(words.to(torch.int64), z, z, chains=chains)
+        L.lsm_probe(words.to(torch.int64), z, z, desc, chains=chains)
     with pytest.raises(ValueError):
-        L.lsm_probe(words, z, z[:4], chains=chains)
+        L.lsm_probe(words, z, z[:4], desc, chains=chains)
     with pytest.raises(ValueError):
         L.lsm_chain_probe(words, z, z, chain=chains[1])
     with pytest.raises(ValueError):
