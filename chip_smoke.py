@@ -6,8 +6,11 @@ Phases, one line each; any failure exits non-zero and prints no result:
 1. device    the card's name and power limit (nvidia-smi)
 2. build     nvcc for sm_90a, one process per kernel source, all at once
 3. kernels   each CUDA kernel against its plain torch version at the edge
-             shapes (T in {1, 16, 32}; fuse, uniform, no stage 1, bloom,
-             always): exact equality
+             shapes (lsm: T in {1, 16, 32}; fuse, uniform, no stage 1,
+             bloom, always; xor: alpha in {1, 8, 32} x uniform/fuse;
+             exact: strategy a/b; chained: with and without stage 1,
+             eps > 0; cascade: L in {1, 2, 5, 18, 1100}; seeds >= 2**31):
+             exact equality
 4. main      the paper's §5.4 point query at full width: a chained
              ``LsmStore`` of 16 flushes x 500,000 keys (8M keys, a ~41 MB
              bank), ``get_batch`` of 1,048,576 existing and 1,048,576
@@ -20,10 +23,21 @@ Phases, one line each; any failure exits non-zero and prints no result:
              the bloom store's bank probe (``bloom_probe``)
 6. serving   zipfian read-heavy traffic with compaction, replayed against
              a dict
-7. times     each kernel's device time (20 calls in one CUDA graph,
+7. filters   the paper's §5.1-§5.3 serving bank at full width, as
+             ``benchmarks/filter_service.py`` builds it: 1,000,000
+             positives, lambda = 8, five filters (Bloom 1%, Xor alpha = 8,
+             ExactBloomier, ChainedFilterAnd, an 18-layer
+             ChainedFilterCascade) packed into one ~28.5 MB bank, and
+             ``FilterService.probe`` of 4,000,000 queries (one launch each
+             of bloom_probe, xor_probe, exact_probe, chained_probe and
+             cascade_probe); member and probes equal to the host filters on
+             every query, the exact filters exact over their universes,
+             bits per key against the lower bound, and ``refresh_tables``
+             or ``rebuild`` after online cascade training
+8. times     each kernel's device time (20 calls in one CUDA graph,
              median of 5 replay windows of >= 5 ms), its time per eager
-             call and its plain version's at the main path's shapes,
-             beside bounds counted from the work these keys need
+             call and its plain version's at its path's shapes, beside
+             bounds counted from the work these keys need
 
 Then one JSON line of kernel records, the card line and the result line.
 Launch counts are set to 0 just before each path is driven and read just
@@ -49,6 +63,8 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 SMS, INT32_LANES = 132, 64         # INT32 lanes per SM per clock (Hopper)
 # the main path's size: 16 flushes x 500,000 keys, 1,048,576-key batches
 FLUSHES, PER_TABLE, QUERIES = 16, 500_000, 1_048_576
+# the filter bank's size: benchmarks/filter_service.py at full scale
+F_POS, F_LAMBDA, F_QUERIES = 1_000_000, 8, 4_000_000
 
 # Integer instructions that each function needs, counted from csrc/
 # (probe_common.cuh, lsm_probe.cu, bloom_probe.cu). Loads go through the
@@ -64,8 +80,13 @@ FLUSHES, PER_TABLE, QUERIES = 16, 500_000, 1_048_576
 # probe = 24 (hash, fastrange, word index, bit test) and is needed up to
 # the key's first zero bit. Each table costs 2 to fold its decision into
 # the mask, each key 5 (its index, the bound check, the outputs).
+# A Bloomier match (xor_probe.cu, chained_probe.cu) costs what a stage 1
+# does: the target hash counts 18 of it, and strategy b's constant target
+# needs none. A cascade layer costs 2 (the loop and its test) where a key
+# reaches it, and its Bloom probes 24 each up to the first zero bit.
 OPS_STAGE1 = {"fuse": 108, "uniform": 83}
 OPS_OTHELLO, OPS_BLOOM_PROBE, OPS_TABLE, OPS_KEY = 48, 24, 2, 5
+OPS_TARGET_HASH = 18
 TIME_WINDOWS, WINDOW_MS = 5, 5.0   # median of 5 windows of >= 5 ms each
 
 
@@ -93,6 +114,11 @@ def chain_ops(chain, n_keys: int, n_pass: int) -> int:
     return s1 + OPS_OTHELLO * n_pass
 
 
+def bloomier_ops(mode: str, hashed_target: bool) -> int:
+    """Integer ops of one Bloomier match for one key."""
+    return OPS_STAGE1[mode] - (0 if hashed_target else OPS_TARGET_HASH)
+
+
 def bound(n_bytes: float, n_ops: float, int32_per_s: float) -> tuple[float, str]:
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / int32_per_s
     return (max(t_bytes, t_ops) * 1e3,
@@ -105,19 +131,35 @@ def main() -> None:
         fail("torch sees no CUDA device; this script runs only on a GPU")
     sys.path.insert(0, os.path.join(ROOT, "src"))
     try:
-        from repro_torch.core import hashing as H
+        from repro_torch.core import hashing as H, theory
+        from repro_torch.core.bloom import BloomFilter
+        from repro_torch.core.bloomier import ExactBloomier, XorFilter
+        from repro_torch.core.chained import (ChainedFilterAnd,
+                                              ChainedFilterCascade)
         from repro_torch.core.lsm import LsmLevelChained
-        from repro_torch.kernels import _build, common, selfcheck
+        from repro_torch.kernels import _build, common, ops, ref, selfcheck
         from repro_torch.kernels.bloom_probe import bloom_probe, bloom_probe_ref
+        from repro_torch.kernels.cascade_probe import (cascade_probe,
+                                                       cascade_probe_ref)
+        from repro_torch.kernels.chained_probe import (chained_probe,
+                                                       chained_probe_ref)
         from repro_torch.kernels.lsm_probe import (lsm_chain_probe,
                                                    lsm_chain_probe_ref,
                                                    lsm_probe, lsm_probe_ref)
+        from repro_torch.kernels.xor_probe import (exact_probe,
+                                                   exact_probe_ref, xor_probe,
+                                                   xor_probe_ref)
+        from repro_torch.serving.filter_service import FilterService, bank_probe
         from repro_torch.storage import (LatencyAccountant, LsmStore,
                                          zipfian_read_heavy)
     except ImportError as exc:
         fail(f"the repro_torch package is not beside this script ({exc})")
     kernels = {"lsm_probe": lsm_probe, "lsm_chain_probe": lsm_chain_probe,
-               "bloom_probe": bloom_probe}
+               "bloom_probe": bloom_probe, "xor_probe": xor_probe,
+               "exact_probe": exact_probe, "chained_probe": chained_probe,
+               "cascade_probe": cascade_probe}
+    bank_kernels = ("bloom_probe", "xor_probe", "exact_probe",
+                    "chained_probe", "cascade_probe")
 
     def reset_counts():
         for fn in kernels.values():
@@ -233,10 +275,10 @@ def main() -> None:
     sample = np.concatenate([exist[:1000], miss[:1000]])
     lvl = LsmLevelChained.from_parts(store.sstables, store.filters,
                                      seed=store.seed)
-    ref = [lvl.point_query(int(k)) for k in sample]
+    model = [lvl.point_query(int(k)) for k in sample]
     s_found, _, s_reads = store.get_batch(sample)
-    check(bool((s_found == np.array([r[0] for r in ref])).all()
-               and (s_reads == np.array([r[1] for r in ref])).all()),
+    check(bool((s_found == np.array([r[0] for r in model])).all()
+               and (s_reads == np.array([r[1] for r in model])).all()),
           "store disagrees with the host model")
     bank_mb = gen.tables.nbytes / 1e6
     print(f"main: {n_fl} tables x {per} keys built in {t_build:.1f} s, bank "
@@ -290,11 +332,11 @@ def main() -> None:
     # -- 6. serving with compaction ----------------------------------------
     serve = LsmStore(seed=11, memtable_capacity=25_000, compact_min_run=4,
                      device=dev)
-    ops = zipfian_read_heavy(64, batch=12_500, n_keys=100_000, seed=5)
+    traffic = zipfian_read_heavy(64, batch=12_500, n_keys=100_000, seed=5)
     truth: dict[int, int] = {}
     acct = LatencyAccountant()
     n_get = n_agree = 0
-    for op in ops:
+    for op in traffic:
         if op.kind == "put":
             serve.put_batch(op.keys, op.vals)
             truth.update(zip(op.keys.tolist(), op.vals.tolist()))
@@ -315,7 +357,108 @@ def main() -> None:
           f"model), {serve.stats.compactions} compactions, {serve.n_tables} "
           f"tables, dict replay agrees on {n_agree}/{n_get}", flush=True)
 
-    # -- 7. times at the main path's shapes ------------------------------------
+    # -- 7. filters: the §5.1-§5.3 serving bank at full width --------------------
+    t0 = time.monotonic()
+    fkeys = H.random_keys(F_POS * (F_LAMBDA + 1) + F_QUERIES, seed=42)
+    pos, neg = fkeys[:F_POS], fkeys[F_POS:F_POS * (F_LAMBDA + 1)]
+    queries = np.random.default_rng(7).choice(fkeys, size=F_QUERIES,
+                                              replace=True)
+    builds = {}
+
+    def timed(name, make):
+        t = time.monotonic()
+        f = make()
+        builds[name] = time.monotonic() - t
+        return f
+
+    fbloom = timed("bloom", lambda: BloomFilter.build(pos, 0.01, seed=11))
+    fxor = timed("xor", lambda: XorFilter.build(pos, 8, seed=12))
+    fexact = timed("exact", lambda: ExactBloomier.build(
+        pos[:F_POS // 2], neg[:F_POS], seed=13))
+    fchained = timed("chained", lambda: ChainedFilterAnd.build(pos, neg,
+                                                               seed=14))
+    fcascade = timed("cascade", lambda: ChainedFilterCascade.build(pos, neg,
+                                                                   seed=3))
+    filters = [fbloom, fxor, fexact, fchained, fcascade]
+    svc = FilterService(filters, device=dev)
+    fstate = svc.state                      # the bank as built, for times
+    t_fbuild = time.monotonic() - t0
+    reset_counts()
+    f_member, f_probes = svc.probe(queries)
+    filter_launches = {k: kernels[k].launches for k in bank_kernels}
+    torch.cuda.synchronize()
+    check(all(v == 1 for v in filter_launches.values()),
+          f"FilterService.probe launches {filter_launches}, not one each")
+    fstats = svc.stats.as_dict()
+    # every query against the host filters: member, probes, stats
+    host_probes = [np.ones(F_QUERIES, np.int64)] * 3 + [
+        1 + fchained.stage_queries(queries)[0].astype(np.int64),
+        fcascade.probes_until_decided(queries).astype(np.int64)]
+    for i, f in enumerate(filters):
+        check(bool((f_member[i] == f.query(queries)).all()),
+              f"filter {i}: member != host query on {F_QUERIES} queries")
+        check(bool((f_probes[i] == host_probes[i]).all()),
+              f"filter {i}: probes != host count")
+        check(fstats["avg_probes"][i] == host_probes[i].sum() / F_QUERIES,
+              f"filter {i}: avg_probes != host mean")
+    # the exact filters are exact over their universes, through the kernels
+    exact_universe = (pos[:F_POS // 2], neg[:F_POS])
+    fp_fn = {
+        "chained": (int((~ops.chained_query(fchained, pos, dev)).sum()),
+                    int(ops.chained_query(fchained, neg, dev).sum())),
+        "exact": (int((~ops.exact_query(fexact, exact_universe[0], dev)).sum()),
+                  int(ops.exact_query(fexact, exact_universe[1], dev).sum())),
+        "cascade": (int((~ops.cascade_query(fcascade, pos, dev)).sum()),
+                    int(ops.cascade_query(fcascade, neg, dev).sum())),
+    }
+    check(all(v == (0, 0) for v in fp_fn.values()),
+          f"an exact filter erred (false negatives, false positives): {fp_fn}")
+    bpk = fchained.bits / F_POS
+    lower = theory.f_lower_bound(0.0, float(F_LAMBDA))
+    print(f"filters: {F_POS} positives, lambda {F_LAMBDA}, bank "
+          f"{svc.bank.nbytes / 1e6:.1f} MB, cascade {fcascade.n_layers} "
+          f"layers, chained alpha {fchained.f1.alpha} with "
+          f"{fchained.n_false_pos} stage-2 whitelists | host build "
+          f"{t_fbuild:.1f} s (" + ", ".join(f"{k} {v:.1f}" for k, v in
+                                              builds.items())
+          + f") | probe of {F_QUERIES} queries: launches {filter_launches}, "
+          f"member and probes == host on every query, avg_probes "
+          f"{[round(float(p), 6) for p in fstats['avg_probes']]}, hit_rate "
+          f"{[round(float(h), 6) for h in fstats['hit_rate']]} | exact over their "
+          f"universes (false negatives, false positives): "
+          + json.dumps(fp_fn), flush=True)
+    print(f"filters bits/key: ChainedFilterAnd {bpk:.4f} bits per positive "
+          f"against the lower bound f(0, {F_LAMBDA}) = {lower:.4f} "
+          f"({bpk / lower:.4f}x); cascade {fcascade.bits / F_POS:.4f}",
+          flush=True)
+    # §5.3 online training, then the new contents through the service
+    n_before = fcascade.n_layers
+    stream = fkeys[-20_000:]
+    labels = np.arange(len(stream)) % 2 == 0
+    errs = fcascade.train(stream, labels)
+    check(errs[-1] == 0.0, "cascade training did not converge")
+    if fcascade.n_layers == n_before:
+        svc.refresh_tables(filters)
+        how = "refresh_tables"
+    else:
+        try:
+            svc.refresh_tables(filters)
+            fail("refresh_tables took a cascade whose layers changed")
+        except ValueError:
+            pass
+        svc.rebuild(filters)
+        how = "refresh_tables refused, rebuild"
+    check(bool((svc.probe_filter(4, stream) == labels).all()),
+          "the served cascade disagrees with its training labels")
+    sample = queries[:200_000]
+    check(bool((svc.probe(sample)[0][4] == fcascade.query(sample)).all()),
+          "the served cascade disagrees with the host after training")
+    print(f"filters train: {len(stream)} keys in {len(errs)} rounds (error "
+          f"{errs[0]:.4f} -> {errs[-1]:.4f}), layers {n_before} -> "
+          f"{fcascade.n_layers}, served through {how}: labels and host "
+          "MATCH", flush=True)
+
+    # -- 8. times at each path's shapes -----------------------------------------
     hi, lo = common.key_lanes(exist, dev)
     n = hi.numel()
     chain0 = gen.chains[0]
@@ -340,29 +483,95 @@ def main() -> None:
             lambda: lsm_probe_ref(gen.tables_dev, hi, lo, chains=gen.chains),
             8 * n + 8 * n + gen.tables.nbytes + gen.desc_dev.numel() * 4,
             (OPS_KEY + OPS_TABLE * gen.n_tables) * n
-            + sum(chain_ops(c, n, p) for c, p in zip(gen.chains, passes))),
+            + sum(chain_ops(c, n, p) for c, p in zip(gen.chains, passes)), n),
         "lsm_chain_probe": (
             lambda: lsm_chain_probe(gen.tables_dev, hi, lo, chain=chain0),
             lambda: lsm_chain_probe_ref(gen.tables_dev, hi, lo, chain=chain0),
             16 * n + 4 * lay0.width,
-            OPS_KEY * n + chain_ops(chain0, n, passes[0])),
+            OPS_KEY * n + chain_ops(chain0, n, passes[0]), n),
         "bloom_probe": (
             lambda: (bloom_probe(bstate.tables, hi, lo, **bargs),),
             lambda: (bloom_probe_ref(bstate.tables, hi, lo, **bargs),),
             12 * n + 4 * ((blay.m_bits + 31) // 32),
-            OPS_KEY * n + OPS_BLOOM_PROBE * bloom_probes),
+            OPS_KEY * n + OPS_BLOOM_PROBE * bloom_probes, n),
     }
     print(f"work: stage 1 passes {sum(passes) / n:.6f} tables per key over "
           f"{gen.n_tables} tables ({passes[0] / n:.6f} on table 0); bloom "
           f"probes {bloom_probes / n:.6f} per key of k = {blay.k}", flush=True)
+
+    # the filter bank's kernels at its shapes: 4,000,000 queries over the
+    # bank as built (fstate), counting the work these keys need
+    fhi, flo = common.key_lanes(queries, dev)
+    fn = fhi.numel()
+    fwords, flays = fstate.tables, fstate.bank.layouts
+    lx, le, lc, ls = flays[1:]
+    xargs = dict(mode=lx.mode, seed=lx.seed, seg_len=lx.seg_len,
+                 n_seg=lx.n_seg, alpha=lx.alpha, fp_seed=lx.fp_seed,
+                 offset=lx.offset)
+    eargs = dict(mode=le.mode, seed=le.seed, seg_len=le.seg_len,
+                 n_seg=le.n_seg, strategy=le.strategy, bit_seed=le.bit_seed,
+                 offset=le.offset)
+    cargs = ops.chained_and_params(lc)
+    layers, cdesc = ls.probe_params(), fstate.descs[4]
+    c_pass = (int((chained_probe(fwords, fhi, flo, **cargs)[1] == 2).sum())
+              if lc.xor is not None else fn)
+    reach = cascade_probe(fwords, fhi, flo, cdesc, layers=layers)[1]
+    c_layers = c_hashes = 0
+    for t, (m_bits, k, seed, offset) in enumerate(layers):
+        at = reach > t                       # keys that reach layer t
+        c_layers += int(at.sum())
+        c_hashes += sum(int((at & ref.bloom_probe_ref(
+            fwords, fhi, flo, m_bits=m_bits, k=j, seed=seed,
+            offset=offset)).sum()) for j in range(k))
+    s1_ops = 0 if lc.xor is None else bloomier_ops(lc.xor.mode, True) * fn
+    runs.update({
+        "xor_probe": (
+            lambda: (xor_probe(fwords, fhi, flo, **xargs),),
+            lambda: (xor_probe_ref(fwords, fhi, flo, **xargs),),
+            12 * fn + 4 * lx.width,
+            (OPS_KEY + bloomier_ops(lx.mode, True)) * fn, fn),
+        "exact_probe": (
+            lambda: (exact_probe(fwords, fhi, flo, **eargs),),
+            lambda: (exact_probe_ref(fwords, fhi, flo, **eargs),),
+            12 * fn + 4 * le.width,
+            (OPS_KEY + bloomier_ops(le.mode, le.strategy == "a")) * fn, fn),
+        "chained_probe": (
+            lambda: chained_probe(fwords, fhi, flo, **cargs),
+            lambda: chained_probe_ref(fwords, fhi, flo, **cargs),
+            16 * fn + 4 * lc.width,
+            OPS_KEY * fn + s1_ops
+            + bloomier_ops(lc.exact.mode, lc.exact.strategy == "a") * c_pass,
+            fn),
+        "cascade_probe": (
+            lambda: cascade_probe(fwords, fhi, flo, cdesc, layers=layers),
+            lambda: cascade_probe_ref(fwords, fhi, flo, layers=layers),
+            16 * fn + 4 * ls.width + 16 * len(layers),
+            OPS_KEY * fn + OPS_TABLE * c_layers + OPS_BLOOM_PROBE * c_hashes,
+            fn),
+    })
+    print(f"work: chained stage 1 passes {c_pass / fn:.6f} of {fn} queries; "
+          f"cascade layers reached {c_layers / fn:.6f} and Bloom probes "
+          f"{c_hashes / fn:.6f} per key over {len(layers)} layers", flush=True)
     sources = {"lsm_probe": ("src/repro_torch/csrc/lsm_probe.cu",
                              "src/repro/kernels/lsm_probe.py:270"),
                "lsm_chain_probe": ("src/repro_torch/csrc/lsm_probe.cu",
                                    "src/repro/kernels/lsm_probe.py:328"),
                "bloom_probe": ("src/repro_torch/csrc/bloom_probe.cu",
-                               "src/repro/kernels/bloom_probe.py:32")}
+                               "src/repro/kernels/bloom_probe.py:32"),
+               "xor_probe": ("src/repro_torch/csrc/xor_probe.cu",
+                             "src/repro/kernels/xor_probe.py:65"),
+               "exact_probe": ("src/repro_torch/csrc/xor_probe.cu",
+                               "src/repro/kernels/xor_probe.py:77"),
+               "chained_probe": ("src/repro_torch/csrc/chained_probe.cu",
+                                 "src/repro/kernels/chained_probe.py:58"),
+               "cascade_probe": ("src/repro_torch/csrc/cascade_probe.cu",
+                                 "src/repro/kernels/cascade_probe.py:49")}
+    # launches on the paths that were driven: the main path's get_batch and
+    # bank probe, the bloom grid's bank probe, the filter bank's probe
+    launches = {k: main_launches.get(k, 0) + filter_launches.get(k, 0)
+                for k in kernels}
     records = []
-    for name, (kern, plain, n_bytes, n_ops) in runs.items():
+    for name, (kern, plain, n_bytes, n_ops, n_keys) in runs.items():
         got, want = kern(), plain()
         err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
                   for g, w in zip(got, want))
@@ -374,7 +583,7 @@ def main() -> None:
         src, replaces = sources[name]
         records.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
-                        "launches": main_launches[name], "max_abs_err": err,
+                        "launches": launches[name], "max_abs_err": err,
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": None})
         print(f"time {name}: {ms:.4f} ms kernel on the device (graph "
@@ -382,8 +591,8 @@ def main() -> None:
               f"{', '.join(f'{t:.4f}' for t in per)}), {eager_ms:.4f} ms "
               f"per eager call (host launch path included), {plain_ms:.3f} "
               f"ms plain, bound {bound_ms:.4f} ms ({bound_by}: "
-              f"{n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.3f} G int ops) at {n} "
-              f"keys | {card}", flush=True)
+              f"{n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.3f} G int ops) at "
+              f"{n_keys} keys | {card}", flush=True)
     gathers = 3 * gen.n_tables * n + 2 * sum(passes)
     gather_gb = 32 * gathers / 1e9
     print(f"time lsm_probe gather sectors: {gather_gb:.2f} GB (32 B x "
@@ -410,7 +619,27 @@ def main() -> None:
           f"per {nq}-key batch, host clock, {n_fl} tables) | split+upload "
           f"{lanes_ms:.1f} ms, probe_batch {probe_ms:.1f} ms (kernel "
           f"{kern_ms:.3f} ms), overlay+resolve {get_ms - probe_ms:.1f} ms, "
-          f"device busy {100 * kern_ms / get_ms:.1f}% | {card} | total "
+          f"device busy {100 * kern_ms / get_ms:.1f}% | {card}", flush=True)
+
+    # where a FilterService.probe goes: key split + upload, the five
+    # launches on device lanes (outputs left on the card), the whole call
+    # (+ the download of member and probes, and the stats)
+    lb = flays[0]
+    bank_ms = graph_ms(lambda: bloom_probe(
+        fwords, fhi, flo, m_bits=lb.m_bits, k=lb.k, seed=lb.seed,
+        offset=lb.offset))[0]
+    bank_ms += sum(r["ms"] for r in records if r["name"] in bank_kernels)
+    f_lanes_ms = host_ms(lambda: common.key_lanes(queries, dev))
+    f_launch_ms = host_ms(lambda: bank_probe(fwords, fhi, flo, layouts=flays,
+                                             descs=fstate.descs))
+    f_probe_ms = host_ms(lambda: svc.probe(queries, state=fstate))
+    print(f"time FilterService.probe: {fn / (f_probe_ms / 1e3):.0f} "
+          f"queries/s ({f_probe_ms:.1f} ms per {fn}-query batch over 5 "
+          f"filters, host clock) | split+upload {f_lanes_ms:.1f} ms, five "
+          f"launches {f_launch_ms:.1f} ms (kernels {bank_ms:.3f} ms on the "
+          f"device), download+stats "
+          f"{f_probe_ms - f_lanes_ms - f_launch_ms:.1f} ms, device busy "
+          f"{100 * bank_ms / f_probe_ms:.1f}% | {card} | total "
           f"{time.monotonic() - t_start:.0f} s", flush=True)
 
     print(json.dumps({"kernels": records}))

@@ -16,8 +16,9 @@ Two slot layouts:
     fuse), threshold C≈1.13 — the paper's experimental setting (j=3, C=1.13).
 
 ``BloomierTable`` is the general α-bit static function (retrieval) encoder;
-``XorFilter`` (approximate membership) specializes it per the paper and is
-the LSM ChainedFilter's stage 1. Builds are host numpy, identical to the
+``XorFilter`` (approximate membership; the LSM ChainedFilter's stage 1) and
+``ExactBloomier`` (exact membership over a finite universe; the
+ChainedFilterAnd's stage 2) specialize it per the paper. Builds are host numpy, identical to the
 JAX package's; the probes are the CUDA kernels in ``repro_torch.kernels``.
 """
 from __future__ import annotations
@@ -254,6 +255,78 @@ class XorFilter:
     @property
     def alpha(self) -> int:
         return self.tbl.alpha
+
+    @property
+    def bits(self) -> int:
+        return self.tbl.bits
+
+
+# ---------------------------------------------------------------------------
+# Exact membership over a finite universe (1-bit Bloomier, §3 / §4.2)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class ExactBloomier:
+    """Encodes *every* item of a finite universe with a 1-bit fingerprint.
+
+    strategy 'a' (P[h1=1]=1/2): positives get f=h1(e), negatives f=~h1(e);
+      un-encoded items match with prob 1/2.
+    strategy 'b' (P[h1=1]=1): positives f=1, negatives f=0; un-encoded items
+      match with prob ≈ P[3-xor of table bits == 1].
+    """
+
+    tbl: BloomierTable
+    strategy: str
+    bit_seed: int
+
+    @classmethod
+    def build(cls, pos_keys: np.ndarray, neg_keys: np.ndarray,
+              strategy: str = "a", mode: str = "fuse", C: float = 1.13,
+              seed: int = 0) -> "ExactBloomier":
+        pos = np.asarray(pos_keys, dtype=np.uint64)
+        neg = np.asarray(neg_keys, dtype=np.uint64)
+        universe = np.concatenate([pos, neg])
+        is_pos = np.zeros(len(universe), dtype=np.uint32)
+        is_pos[: len(pos)] = 1
+        bit_seed = seed * 131 + 7
+        if strategy == "a":
+            hi, lo = H.np_split_u64(universe)
+            h1b = H.np_hash_u32(hi, lo, bit_seed) & np.uint32(1)
+            values = np.where(is_pos == 1, h1b, 1 - h1b).astype(np.uint32)
+        elif strategy == "b":
+            values = is_pos
+        else:
+            raise ValueError("strategy must be 'a' or 'b'")
+        tbl = BloomierTable.build(universe, values, alpha=1, mode=mode, C=C, seed=seed)
+        return cls(tbl=tbl, strategy=strategy, bit_seed=bit_seed)
+
+    def query(self, keys: np.ndarray) -> np.ndarray:
+        keys = np.asarray(keys, dtype=np.uint64)
+        got = self.tbl.lookup(keys)
+        if self.strategy == "a":
+            hi, lo = H.np_split_u64(keys)
+            h1b = H.np_hash_u32(hi, lo, self.bit_seed) & np.uint32(1)
+            return got == h1b
+        return got == 1
+
+    # -- packed-table interchange (FilterBank, §5.2) -------------------------
+    def to_tables(self):
+        from .tables import ExactTable, pad_words
+        lay = self.tbl.layout
+        tables = pad_words(self.tbl.table)
+        return tables, ExactTable(offset=0, width=len(tables), mode=lay.mode,
+                                  seed=lay.seed, seg_len=lay.seg_len,
+                                  n_seg=lay.n_seg, strategy=self.strategy,
+                                  bit_seed=self.bit_seed)
+
+    @classmethod
+    def from_tables(cls, tables: np.ndarray, layout) -> "ExactBloomier":
+        slot_layout = SlotLayout(layout.mode, layout.n_seg * layout.seg_len,
+                                 layout.seg_len, layout.n_seg, layout.seed)
+        table = np.array(tables[layout.offset:layout.offset + slot_layout.m],
+                         dtype=np.uint32)
+        tbl = BloomierTable(layout=slot_layout, alpha=1, table=table)
+        return cls(tbl=tbl, strategy=layout.strategy, bit_seed=layout.bit_seed)
 
     @property
     def bits(self) -> int:

@@ -1,10 +1,13 @@
-// Device functions shared by the probe kernels (lsm_probe.cu, bloom_probe.cu).
+// Device functions shared by the probe kernels (lsm_probe.cu, bloom_probe.cu,
+// xor_probe.cu, chained_probe.cu, cascade_probe.cu).
 //
 // Each mirrors, bit for bit, a host function of the port and of the JAX
 // package:
 //   fmix32 / hash_u32 / fastrange  <- core/hashing.py (np_* and t_* twins)
 //   bloom_hit                      <- kernels/common.py bloom_hit
 //   xor_lookup                     <- kernels/common.py xor_slots + xor_lookup
+//   bloomier_match                 <- kernels/ref.py xor_probe_ref and
+//                                     exact_bloomier_ref
 //   othello_hit                    <- kernels/lsm_probe.py othello_hit
 // All arithmetic is uint32 and wraps mod 2^32, as the host versions do:
 // seeds combine as seed*1000+i (Bloom), seed*7919+i (Xor slots), 3*seed+1
@@ -80,6 +83,32 @@ __device__ __forceinline__ uint32_t xor_lookup(const uint32_t* __restrict__ word
   return v;
 }
 
+// One Bloomier table of a packed bank and the test a key must pass there
+// (kernels/xor_probe.py bloomier_fields builds it on the host):
+//   Xor filter:         mask = 2^alpha - 1, target = hash(fp_seed)
+//   exact, strategy a:  mask = 1,           target = hash(bit_seed)
+//   exact, strategy b:  mask = 1,           target = 1
+struct BloomierParams {
+  uint32_t fuse;         // 1 = fuse slot layout, 0 = uniform
+  uint32_t seed;         // slot seed
+  uint32_t seg_len;
+  uint32_t n_seg_m2;     // max(n_seg - 2, 1): the fuse window's range
+  uint32_t offset;       // first word of the table in the bank
+  uint32_t mask;         // the value bits compared (0xFFFFFFFF at alpha 32)
+  uint32_t hash_target;  // 1: target = hash(target_seed); 0: target itself
+  uint32_t target;
+};
+
+// The key's three-slot XOR equals its target in the bits of mask.
+__device__ __forceinline__ bool bloomier_match(const uint32_t* __restrict__ words,
+                                               uint32_t hi, uint32_t lo,
+                                               const BloomierParams& p) {
+  uint32_t v = xor_lookup(words, hi, lo, p.fuse != 0u, p.seed, p.seg_len,
+                          p.n_seg_m2, p.offset);
+  uint32_t t = p.hash_target ? hash_u32(hi, lo, p.target) : p.target;
+  return ((v ^ t) & p.mask) == 0u;
+}
+
 // Stage 1 of an LSM ChainedFilter: the alpha-bit fingerprint match.
 __device__ __forceinline__ bool xor_stage1(const uint32_t* __restrict__ words,
                                            uint32_t hi, uint32_t lo, bool fuse,
@@ -87,8 +116,14 @@ __device__ __forceinline__ bool xor_stage1(const uint32_t* __restrict__ words,
                                            uint32_t n_seg_m2, uint32_t offset,
                                            uint32_t alpha_mask,
                                            uint32_t fp_seed) {
-  uint32_t v = xor_lookup(words, hi, lo, fuse, seed, seg_len, n_seg_m2, offset);
-  return ((v ^ hash_u32(hi, lo, fp_seed)) & alpha_mask) == 0u;
+  return bloomier_match(words, hi, lo,
+                        BloomierParams{fuse ? 1u : 0u, seed, seg_len, n_seg_m2,
+                                       offset, alpha_mask, 1u, fp_seed});
+}
+
+// Fill a BloomierParams from its 8 host words, in field order.
+inline BloomierParams bloomier_params(const uint32_t* f) {
+  return BloomierParams{f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7]};
 }
 
 // Othello 1-bit classifier: A[u] ^ B[v] over LSB-first packed bitmaps.

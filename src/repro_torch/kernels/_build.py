@@ -32,6 +32,7 @@ P = ctypes.c_void_p
 I32 = ctypes.c_int32
 U32 = ctypes.c_uint32
 I64 = ctypes.c_int64
+PU32 = ctypes.POINTER(ctypes.c_uint32)      # host words (a ctypes array)
 
 # C signature of every entry point: (source stem, symbol) -> argtypes
 SIGNATURES = {
@@ -42,6 +43,12 @@ SIGNATURES = {
          U32, U32, U32, U32, U32, I64, P],
     ("bloom_probe", "bloom_probe_launch"):
         [P, P, P, P, U32, U32, U32, U32, I64, P],
+    ("xor_probe", "bloomier_probe_launch"):
+        [P, P, P, P, PU32, I64, P],
+    ("chained_probe", "chained_probe_launch"):
+        [P, P, P, P, P, I32, PU32, PU32, I64, P],
+    ("cascade_probe", "cascade_probe_launch"):
+        [P, P, I32, P, P, P, P, I64, P],
 }
 
 _lock = threading.Lock()

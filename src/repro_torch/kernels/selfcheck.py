@@ -1,31 +1,41 @@
 """Each probe kernel against its plain version at the edge shapes.
 
 ``edge_bank`` packs small host-built filters of every per-table kind the
-fused probe takes — two-stage chains in fuse and uniform slot layouts, a
-chain without stage 1, a Bloom table and an always-read table — with
-Othello and Bloom seeds of 2**31 and above, so seed arithmetic wraps
-mod 2**32. ``run_edge_checks`` launches each kernel on those banks at
-T ∈ {1, 16, 32} tables and counts the outputs that differ from the plain
-version on the same inputs (integer outputs: exact equality). The card's
-test file and ``chip_smoke.py`` both run it; the CPU parity tests probe
-the same banks with the JAX package's kernels.
+fused LSM probe takes — two-stage chains in fuse and uniform slot
+layouts, a chain without stage 1, a Bloom table and an always-read table
+— with Othello and Bloom seeds of 2**31 and above, so seed arithmetic
+wraps mod 2**32. ``filter_case`` builds one filter of the serving path
+(an α-bit Xor filter, an exact Bloomier, a ChainedFilterAnd, a cascade)
+behind a Bloom table in one bank, with seeds of 2**31 and above.
+``run_edge_checks`` launches each kernel on those banks and counts the
+outputs that differ from the plain version on the same inputs (integer
+outputs: exact equality). The card's test file and ``chip_smoke.py``
+both run it; the CPU parity tests probe the same banks with the JAX
+package's kernels.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 from repro_torch.core import hashing as H
 from repro_torch.core.bloom import BloomFilter
-from repro_torch.core.bloomier import XorFilter
+from repro_torch.core.bloomier import ExactBloomier, XorFilter
+from repro_torch.core.chained import ChainedFilterAnd, ChainedFilterCascade
 from repro_torch.core.lsm import ChainedTableFilter
 from repro_torch.core.othello import DynamicExactFilter
 from repro_torch.core.tables import (BloomTable, LsmChainLayout, OthelloTable,
                                      concat_tables)
 from . import common
 from .bloom_probe import bloom_probe, bloom_probe_ref
+from .cascade_probe import cascade_descriptors, cascade_probe, cascade_probe_ref
+from .chained_probe import chained_probe, chained_probe_ref
 from .lsm_probe import (chain_descriptors, lsm_chain_probe,
                         lsm_chain_probe_ref, lsm_probe, lsm_probe_ref)
+from .ops import chained_and_params
+from .xor_probe import exact_probe, exact_probe_ref, xor_probe, xor_probe_ref
 
 KINDS = ("fuse", "uniform", "nos1", "bloom", "always")
 
@@ -114,8 +124,110 @@ def check_bloom_probe(device, per: int = 1000, seed: int = 0) -> int:
                    bloom_probe_ref(words, hi, lo, **args))
 
 
+# -- the filter-serving path: xor, exact, chained and cascade probes ----------
+
+FILTER_SEED = 2**31 + 12_345        # every filter seed >= 2**31
+CASCADE_DEPTHS = (1, 2, 5, 18)      # 18: the full-scale cascade's depth
+DEEP_CASCADE = 1100                 # more layers than the kernel stages
+
+
+def nested_cascade(keys: np.ndarray, n_layers: int,
+                   seed: int) -> ChainedFilterCascade:
+    """A cascade of ``n_layers`` Bloom layers (fpr 0.3), layer i holding
+    the first max(16, ⌈n·0.8^i⌉) keys: keys stop at every depth, the first
+    16 pass every layer (first_zero = L+1) and misses stop early."""
+    layers = [BloomFilter.build(keys[:max(16, math.ceil(len(keys) * 0.8 ** i))],
+                                0.3, seed=seed + 977 * i)
+              for i in range(n_layers)]
+    return ChainedFilterCascade(layers=layers, n_pos=len(keys), n_neg=0)
+
+
+def filter_case(kernel: str, arg, per: int = 1000, seed: int = 0):
+    """(bank uint32, layout, query keys, filter) for one filter of the
+    serving path behind a small Bloom table (so its word offset is > 0):
+
+    - ``xor_probe``: (alpha, mode), an α-bit Xor filter of ``per`` keys;
+    - ``exact_probe``: strategy 'a' or 'b' over ``per`` + 2·``per`` keys;
+    - ``chained_probe``: 'stage 1' (λ = 8), 'no stage 1' (λ = 1.5) or
+      'eps>0' (λ = 8, ε = 0.01);
+    - ``cascade_probe``: L, a ``nested_cascade`` of that depth.
+
+    The keys hold half the positives, ``per`` negatives (some pass a
+    stage 1 and fail stage 2) and the lane extremes."""
+    keys = H.random_keys(per * 10 + 8, seed=seed)
+    pos, neg = keys[:per], keys[per:9 * per]
+    s = FILTER_SEED
+    if kernel == "xor_probe":
+        alpha, mode = arg
+        f = XorFilter.build(pos, alpha, mode=mode, seed=s + alpha)
+    elif kernel == "exact_probe":
+        f = ExactBloomier.build(pos, neg[:2 * per], strategy=arg, seed=s)
+    elif kernel == "chained_probe":
+        n_neg = {"stage 1": 8 * per, "no stage 1": 3 * per // 2,
+                 "eps>0": 8 * per}[arg]
+        f = ChainedFilterAnd.build(pos, neg[:n_neg], seed=s,
+                                   eps=0.01 if arg == "eps>0" else 0.0)
+    elif kernel == "cascade_probe":
+        f = nested_cascade(pos, arg, s)
+    else:
+        raise ValueError(f"no filter case for {kernel!r}")
+    front = BloomFilter.build(keys[-8:], 0.1, seed=s + 1)
+    tables, (_, lay) = concat_tables([front.to_tables(), f.to_tables()])
+    q = np.concatenate([pos[::2], neg[-per:], keys[9 * per:],
+                        np.array([0, 2**64 - 1, 2**32 - 1, 2**32], np.uint64)])
+    return tables, lay, q, f
+
+
+def filter_calls(kernel: str, lay, words: torch.Tensor):
+    """(kernel, plain version) of ``kernel`` on the filter at ``lay`` in
+    the bank ``words``: functions of (hi, lo) returning a tuple of int32
+    outputs."""
+    if kernel == "xor_probe":
+        a = dict(mode=lay.mode, seed=lay.seed, seg_len=lay.seg_len,
+                 n_seg=lay.n_seg, alpha=lay.alpha, fp_seed=lay.fp_seed,
+                 offset=lay.offset)
+        return (lambda hi, lo: (xor_probe(words, hi, lo, **a),),
+                lambda hi, lo: (xor_probe_ref(words, hi, lo, **a),))
+    if kernel == "exact_probe":
+        a = dict(mode=lay.mode, seed=lay.seed, seg_len=lay.seg_len,
+                 n_seg=lay.n_seg, strategy=lay.strategy,
+                 bit_seed=lay.bit_seed, offset=lay.offset)
+        return (lambda hi, lo: (exact_probe(words, hi, lo, **a),),
+                lambda hi, lo: (exact_probe_ref(words, hi, lo, **a),))
+    if kernel == "chained_probe":
+        a = chained_and_params(lay)
+        return (lambda hi, lo: chained_probe(words, hi, lo, **a),
+                lambda hi, lo: chained_probe_ref(words, hi, lo, **a))
+    layers = lay.probe_params()
+    desc = torch.from_numpy(cascade_descriptors(layers)).to(words.device)
+    return (lambda hi, lo: cascade_probe(words, hi, lo, desc, layers=layers),
+            lambda hi, lo: cascade_probe_ref(words, hi, lo, layers=layers))
+
+
+def check_filter_kernel(kernel: str, arg, device, per: int = 1000,
+                        seed: int = 0) -> int:
+    """Mismatching outputs of a filter-serving kernel vs its plain version
+    on ``filter_case(kernel, arg)`` (0 = agree)."""
+    tables, lay, q, _ = filter_case(kernel, arg, per, seed)
+    words = common.to_device(tables, device)
+    hi, lo = common.key_lanes(q, device)
+    kern, plain = filter_calls(kernel, lay, words)
+    return sum(_differ(g, w) for g, w in zip(kern(hi, lo), plain(hi, lo)))
+
+
+def filter_edge_cases() -> list[tuple[str, str, object]]:
+    """(kernel, case name, ``filter_case`` arg) of the serving kernels."""
+    cases = [("xor_probe", f"alpha={a} {m}", (a, m))
+             for a in (1, 8, 32) for m in ("uniform", "fuse")]
+    cases += [("exact_probe", f"strategy {s}", s) for s in ("a", "b")]
+    cases += [("chained_probe", c, c)
+              for c in ("stage 1", "no stage 1", "eps>0")]
+    cases += [("cascade_probe", f"L={n}", n) for n in CASCADE_DEPTHS]
+    return cases
+
+
 def edge_cases() -> list[tuple[str, str, object]]:
-    """(kernel, case name, table kinds) for every edge shape."""
+    """(kernel, case name, argument) for every edge shape."""
     mixed = ("fuse", "uniform", "nos1", "bloom", "always", "fuse", "uniform",
              "fuse")
     cases = [("lsm_probe", f"T=1 {k}", (k,)) for k in KINDS]
@@ -123,18 +235,24 @@ def edge_cases() -> list[tuple[str, str, object]]:
               ("lsm_probe", "T=32 mixed", mixed * 4)]
     cases += [("lsm_chain_probe", k, k) for k in ("fuse", "uniform", "nos1")]
     cases += [("bloom_probe", "seed>=2**31 offset>0", None)]
+    cases += filter_edge_cases()
+    cases += [("cascade_probe", f"L={DEEP_CASCADE} descriptor in global "
+               "memory", DEEP_CASCADE)]
     return cases
+
+
+def check_case(kernel: str, arg, device, per: int = 1000) -> int:
+    """Mismatches of one ``edge_cases`` entry on ``device``."""
+    if kernel == "lsm_probe":
+        return check_lsm_probe(arg, device, per)
+    if kernel == "lsm_chain_probe":
+        return check_lsm_chain_probe(arg, device, per)
+    if kernel == "bloom_probe":
+        return check_bloom_probe(device, per)
+    return check_filter_kernel(kernel, arg, device, per)
 
 
 def run_edge_checks(device, per: int = 1000) -> list[tuple[str, str, int]]:
     """(kernel, case, mismatches) for every edge case on ``device``."""
-    out = []
-    for kernel, name, arg in edge_cases():
-        if kernel == "lsm_probe":
-            bad = check_lsm_probe(arg, device, per)
-        elif kernel == "lsm_chain_probe":
-            bad = check_lsm_chain_probe(arg, device, per)
-        else:
-            bad = check_bloom_probe(device, per)
-        out.append((kernel, name, bad))
-    return out
+    return [(kernel, name, check_case(kernel, arg, device, per))
+            for kernel, name, arg in edge_cases()]

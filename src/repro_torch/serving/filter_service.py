@@ -15,12 +15,17 @@ Paper mapping
   ``bloom_probe``) and reports the sequential probe count — 1 + stage-1
   pass for a chain — mirroring the paper's memory-access accounting
   (Fig. 7b).
+- **§5.1–§5.3 (the paper's combiners).** Xor filters, exact Bloomiers,
+  ChainedFilterAnd and ChainedFilterCascade banks are probed by
+  ``xor_probe``, ``exact_probe``, ``chained_probe`` (both stages, probes
+  = 1 + stage-1 pass) and ``cascade_probe`` (every layer and the
+  first-zero parity rule in one launch, probes = min(first_zero, L)). A
+  cascade's int32 layer descriptor is built once per published
+  ``BankState``, not per probe.
 
 The service runs on one device. The JAX package splits key rows across
 devices with ``shard_map``; a multi-GPU row split is still to be ported
-(ROADMAP). Filters whose layouts belong to later slices of the port
-(``XorTable``, ``ExactTable``, ``ChainedAndLayout``, ``CascadeLayout``)
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+(ROADMAP).
 """
 from __future__ import annotations
 
@@ -31,7 +36,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.bloom import BloomFilter
-from repro_torch.core.bloomier import XorFilter
+from repro_torch.core.bloomier import ExactBloomier, XorFilter
+from repro_torch.core.chained import ChainedFilterAnd, ChainedFilterCascade
 from repro_torch.core.lsm import ChainedTableFilter
 from repro_torch.core.othello import DynamicExactFilter
 from repro_torch.core.tables import (BloomTable, XorTable, ExactTable,
@@ -40,30 +46,21 @@ from repro_torch.core.tables import (BloomTable, XorTable, ExactTable,
                                      concat_tables)
 from repro_torch.kernels import common
 from repro_torch.kernels.bloom_probe import bloom_probe
+from repro_torch.kernels.cascade_probe import cascade_descriptors, cascade_probe
+from repro_torch.kernels.chained_probe import chained_probe
 from repro_torch.kernels.lsm_probe import lsm_chain_probe, othello_hit
+from repro_torch.kernels.ops import chained_and_params
+from repro_torch.kernels.xor_probe import exact_probe, xor_probe
 
 _LAYOUT_TO_CLASS = {
     BloomTable: BloomFilter,
     XorTable: XorFilter,
+    ExactTable: ExactBloomier,
     OthelloTable: DynamicExactFilter,
+    ChainedAndLayout: ChainedFilterAnd,
+    CascadeLayout: ChainedFilterCascade,
     LsmChainLayout: ChainedTableFilter,
 }
-
-# layouts whose probe kernels (or filter classes) later slices port
-_NOT_PORTED = {
-    XorTable: "ROADMAP Queue 2 item 5 (xor_probe)",
-    ExactTable: "ROADMAP Queue 2 item 6 (exact_probe) with core/chained.py, "
-                "Queue 1 item 10",
-    ChainedAndLayout: "ROADMAP Queue 2 item 7 (chained_probe) with "
-                      "core/chained.py, Queue 1 item 10",
-    CascadeLayout: "ROADMAP Queue 2 item 8 (cascade_probe) with "
-                   "core/chained.py, Queue 1 item 10",
-}
-
-
-def _not_ported(lay) -> NotImplementedError:
-    return NotImplementedError(
-        f"{type(lay).__name__} is not ported yet: {_NOT_PORTED[type(lay)]}")
 
 
 # ---------------------------------------------------------------------------
@@ -84,9 +81,7 @@ class FilterBank:
         """Reconstruct the filter objects (bit-identical query behaviour)."""
         out = []
         for lay in self.layouts:
-            klass = _LAYOUT_TO_CLASS.get(type(lay))
-            if klass is None:
-                raise _not_ported(lay)
+            klass = _LAYOUT_TO_CLASS[type(lay)]
             out.append(klass.from_tables(self.tables, lay))
         return out
 
@@ -103,11 +98,32 @@ class FilterBank:
 # per-layout dispatch
 # ---------------------------------------------------------------------------
 
-def _probe_one(tables, hi, lo, lay) -> tuple[torch.Tensor, torch.Tensor]:
-    """-> (member, probes) int32 of hi's shape for one filter layout."""
+def layout_descriptors(layouts: tuple, device) -> tuple:
+    """The device-side descriptor each layout's kernel takes, aligned with
+    ``layouts``: int32 [L, 4] layer descriptors for a cascade, None for a
+    layout whose kernel takes its fields as arguments."""
+    return tuple(
+        torch.from_numpy(cascade_descriptors(lay.probe_params())).to(device)
+        if isinstance(lay, CascadeLayout) else None for lay in layouts)
+
+
+def _probe_one(tables, hi, lo, lay, desc) -> tuple[torch.Tensor, torch.Tensor]:
+    """-> (member, probes) int32 of hi's shape for one filter layout;
+    ``desc`` is its ``layout_descriptors`` entry."""
     if isinstance(lay, BloomTable):
         m = bloom_probe(tables, hi, lo, m_bits=lay.m_bits, k=lay.k,
                         seed=lay.seed, offset=lay.offset)
+        return m, torch.ones_like(m)
+    if isinstance(lay, XorTable):
+        m = xor_probe(tables, hi, lo, mode=lay.mode, seed=lay.seed,
+                      seg_len=lay.seg_len, n_seg=lay.n_seg, alpha=lay.alpha,
+                      fp_seed=lay.fp_seed, offset=lay.offset)
+        return m, torch.ones_like(m)
+    if isinstance(lay, ExactTable):
+        m = exact_probe(tables, hi, lo, mode=lay.mode, seed=lay.seed,
+                        seg_len=lay.seg_len, n_seg=lay.n_seg,
+                        strategy=lay.strategy, bit_seed=lay.bit_seed,
+                        offset=lay.offset)
         return m, torch.ones_like(m)
     if isinstance(lay, OthelloTable):
         m = othello_hit(tables, hi, lo, ma=lay.ma, mb=lay.mb, seed=lay.seed,
@@ -116,18 +132,21 @@ def _probe_one(tables, hi, lo, lay) -> tuple[torch.Tensor, torch.Tensor]:
         return m, torch.ones_like(m)
     if isinstance(lay, LsmChainLayout):
         return lsm_chain_probe(tables, hi, lo, chain=lay.probe_params())
-    if type(lay) in _NOT_PORTED:
-        raise _not_ported(lay)
+    if isinstance(lay, ChainedAndLayout):
+        return chained_probe(tables, hi, lo, **chained_and_params(lay))
+    if isinstance(lay, CascadeLayout):
+        return cascade_probe(tables, hi, lo, desc, layers=lay.probe_params())
     raise TypeError(f"unknown filter layout {type(lay).__name__}")
 
 
-def bank_probe(tables, hi, lo, *, layouts: tuple
+def bank_probe(tables, hi, lo, *, layouts: tuple, descs: tuple
                ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Probe every filter in the bank on one key batch.
+    """Probe every filter in the bank on one key batch; ``descs`` are the
+    layouts' ``layout_descriptors`` on the bank's device.
     -> (member, probes) int32 [F, *hi.shape]."""
     members, probes = [], []
-    for lay in layouts:
-        m, p = _probe_one(tables, hi, lo, lay)
+    for lay, desc in zip(layouts, descs):
+        m, p = _probe_one(tables, hi, lo, lay, desc)
         members.append(m)
         probes.append(p)
     return torch.stack(members), torch.stack(probes)
@@ -147,6 +166,7 @@ class BankState:
     bank: FilterBank
     tables: torch.Tensor               # int32 [W] on the service's device
     version: int                       # monotonically increasing
+    descs: tuple                       # layout_descriptors(bank.layouts)
 
     @property
     def n_filters(self) -> int:
@@ -213,10 +233,12 @@ class FilterService:
         bank = FilterBank.pack(filters)
         bank.tables.setflags(write=False)      # immutable once staged
         tables = common.to_device(bank.tables, self.device)
+        descs = layout_descriptors(bank.layouts, self.device)
         if warm:
             z = torch.zeros(common.BLOCK, dtype=torch.int32, device=self.device)
-            bank_probe(tables, z, z, layouts=bank.layouts)
-        return BankState(bank=bank, tables=tables, version=self.version + 1)
+            bank_probe(tables, z, z, layouts=bank.layouts, descs=descs)
+        return BankState(bank=bank, tables=tables, version=self.version + 1,
+                         descs=descs)
 
     def publish(self, state: BankState) -> None:
         """Atomically install a staged state as the serving bank — the
@@ -249,7 +271,8 @@ class FilterService:
             return np.zeros(shape, bool), np.zeros(shape, np.int32)
         hi, lo = common.key_lanes(keys, self.device)
         member, probes = bank_probe(state.tables, hi, lo,
-                                    layouts=state.bank.layouts)
+                                    layouts=state.bank.layouts,
+                                    descs=state.descs)
         member = member.cpu().numpy().astype(bool)
         probes = probes.cpu().numpy()
         if current:
@@ -266,7 +289,8 @@ class FilterService:
             return np.zeros(0, bool)
         state = self._state
         hi, lo = common.key_lanes(keys, self.device)
-        member, _ = _probe_one(state.tables, hi, lo, state.bank.layouts[index])
+        member, _ = _probe_one(state.tables, hi, lo, state.bank.layouts[index],
+                               state.descs[index])
         return member.cpu().numpy().astype(bool)
 
     def refresh_tables(self, filters: list) -> None:
@@ -276,8 +300,9 @@ class FilterService:
         that did not resize. Packing calls each filter's ``to_tables``,
         which is where batched Othello exclusions materialize their lazily
         flipped components. The previous state's buffer is never touched:
-        readers pinned to it keep probing the old contents. Stats are kept
-        (content-only refresh)."""
+        readers pinned to it keep probing the old contents. The layouts'
+        device descriptors carry over. Stats are kept (content-only
+        refresh)."""
         old = self._state
         bank = FilterBank.pack(filters)
         if bank.layouts != old.bank.layouts:
@@ -285,7 +310,7 @@ class FilterService:
         bank.tables.setflags(write=False)
         state = BankState(bank=bank,
                           tables=common.to_device(bank.tables, self.device),
-                          version=old.version + 1)
+                          version=old.version + 1, descs=old.descs)
         with self._swap_lock:
             self._state = state
 

@@ -10,11 +10,25 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import hashing as H  # noqa: E402
-from repro_torch.kernels import selfcheck  # noqa: E402
+from repro_torch.core.bloom import BloomFilter  # noqa: E402
+from repro_torch.core.bloomier import ExactBloomier, XorFilter  # noqa: E402
+from repro_torch.core.chained import (ChainedFilterAnd,  # noqa: E402
+                                      ChainedFilterCascade)
+from repro_torch.kernels import ops, selfcheck  # noqa: E402
 from repro_torch.kernels.bloom_probe import bloom_probe  # noqa: E402
+from repro_torch.kernels.cascade_probe import (cascade_descriptors,  # noqa: E402
+                                               cascade_probe)
+from repro_torch.kernels.chained_probe import chained_probe  # noqa: E402
 from repro_torch.kernels.lsm_probe import (chain_descriptors,  # noqa: E402
                                            lsm_chain_probe, lsm_probe)
+from repro_torch.kernels.xor_probe import exact_probe, xor_probe  # noqa: E402
+from repro_torch.serving import FilterService  # noqa: E402
 from repro_torch.storage import LsmStore  # noqa: E402
+
+KERNELS = {"lsm_probe": lsm_probe, "lsm_chain_probe": lsm_chain_probe,
+           "bloom_probe": bloom_probe, "xor_probe": xor_probe,
+           "exact_probe": exact_probe, "chained_probe": chained_probe,
+           "cascade_probe": cascade_probe}
 
 pytestmark = pytest.mark.gpu
 
@@ -30,15 +44,9 @@ def cuda():
                          ids=[f"{k}:{n}" for k, n, _ in selfcheck.edge_cases()])
 def test_kernel_matches_plain_version(cuda, case):
     kernel, _, arg = selfcheck.edge_cases()[case]
-    counter = {"lsm_probe": lsm_probe, "lsm_chain_probe": lsm_chain_probe,
-               "bloom_probe": bloom_probe}[kernel]
+    counter = KERNELS[kernel]
     before = counter.launches
-    if kernel == "lsm_probe":
-        bad = selfcheck.check_lsm_probe(arg, cuda)
-    elif kernel == "lsm_chain_probe":
-        bad = selfcheck.check_lsm_chain_probe(arg, cuda)
-    else:
-        bad = selfcheck.check_bloom_probe(cuda)
+    bad = selfcheck.check_case(kernel, arg, cuda)
     torch.cuda.synchronize()
     assert bad == 0
     assert counter.launches == before + 1
@@ -85,3 +93,57 @@ def test_kernels_reject_what_they_cannot_take(cuda):
     empty = torch.zeros(0, dtype=torch.int32, device=cuda)
     first, mask = lsm_probe(words, empty, empty, desc, chains=chains)
     assert first.numel() == mask.numel() == 0
+
+
+def test_filter_service_on_card_matches_cpu(cuda):
+    keys = H.random_keys(50_000, seed=9)
+    n = 5000
+    pos, neg = keys[:n], keys[n:9 * n]
+    filters = [BloomFilter.build(pos, 0.01, seed=11),
+               XorFilter.build(pos, 8, seed=12),
+               ExactBloomier.build(pos[:n // 2], neg[:n], seed=13),
+               ChainedFilterAnd.build(pos, neg, seed=14),
+               ChainedFilterCascade.build(pos, neg, seed=3)]
+    q = np.random.default_rng(7).choice(keys, 30_000)
+    gpu, cpu = (FilterService(filters, device=d) for d in (cuda, "cpu"))
+    before = {k: f.launches for k, f in KERNELS.items()}
+    got, want = gpu.probe(q), cpu.probe(q)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    for name in ("bloom_probe", "xor_probe", "exact_probe", "chained_probe",
+                 "cascade_probe"):
+        assert KERNELS[name].launches == before[name] + 1
+    assert gpu.stats.as_dict() == cpu.stats.as_dict()
+    for f, fn in zip(filters, (ops.bloom_query, ops.xor_query,
+                               ops.exact_query, ops.chained_query,
+                               ops.cascade_query)):
+        np.testing.assert_array_equal(fn(f, q, device=cuda), f.query(q))
+
+
+def test_filter_kernels_reject_what_they_cannot_take(cuda):
+    tables, lay, _, _ = selfcheck.filter_case("chained_probe", "stage 1",
+                                              per=200)
+    words = torch.from_numpy(tables.view(np.int32).copy()).to(cuda)
+    hi = torch.zeros(16, dtype=torch.int32, device=cuda)
+    x = dict(mode=lay.xor.mode, seed=lay.xor.seed, seg_len=lay.xor.seg_len,
+             n_seg=lay.xor.n_seg, offset=lay.xor.offset)
+    with pytest.raises(ValueError):        # key lanes on another device
+        xor_probe(words, hi, hi.cpu(), alpha=3, fp_seed=1, **x)
+    with pytest.raises(TypeError):
+        xor_probe(words, hi.to(torch.int64), hi, alpha=3, fp_seed=1, **x)
+    with pytest.raises(ValueError):        # outside the bank
+        exact_probe(words[:128], hi, hi, strategy="a", bit_seed=1, **x)
+    with pytest.raises(ValueError):
+        chained_probe(words, hi, hi[:8], **ops.chained_and_params(lay))
+    layers = ((64, 3, 1, 0),)
+    desc = torch.from_numpy(cascade_descriptors(layers)).to(cuda)
+    with pytest.raises(ValueError):        # descriptors on another device
+        cascade_probe(words, hi, hi, desc.cpu(), layers=layers)
+    with pytest.raises(ValueError):
+        cascade_probe(words, hi, hi, desc, layers=((2**31, 3, 1, 0),))
+    empty = torch.zeros(0, dtype=torch.int32, device=cuda)
+    assert xor_probe(words, empty, empty, alpha=3, fp_seed=1, **x).numel() == 0
+    for out in (chained_probe(words, empty, empty,
+                              **ops.chained_and_params(lay)),
+                cascade_probe(words, empty, empty, desc, layers=layers)):
+        assert all(o.numel() == 0 for o in out)
