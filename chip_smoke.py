@@ -7,17 +7,20 @@ Phases, one line each; any failure exits non-zero and prints no result:
 2. build     nvcc for sm_90a, one process per kernel source, all at once
 3. kernels   each CUDA kernel against its plain torch version at the edge
              shapes (lsm: T in {1, 16, 32}; fuse, uniform, no stage 1,
-             bloom, always; xor: alpha in {1, 8, 32} x uniform/fuse;
-             exact: strategy a/b; chained: with and without stage 1,
-             eps > 0; cascade: L in {1, 2, 5, 18, 1100}; seeds >= 2**31):
-             exact equality
+             bloom, always; both paths of lsm_probe on all-fuse banks, one
+             window per table at n = 1, empty windows;
+             xor: alpha in {1, 8, 32} x uniform/fuse; exact: strategy a/b;
+             chained: with and without stage 1, eps > 0; cascade: L in
+             {1, 2, 5, 18, 1100}; seeds >= 2**31) and the window path's
+             partition scratch against its torch twin: exact equality
 4. main      the paper's §5.4 point query at full width: a chained
              ``LsmStore`` of 16 flushes x 500,000 keys (8M keys, a ~41 MB
              bank), ``get_batch`` of 1,048,576 existing and 1,048,576
-             missing keys (one fused ``lsm_probe`` launch each), and its
-             ``FilterService`` bank probe (``lsm_chain_probe``); values
-             exact, reads == 1 on existing keys and <= 1 on misses, a
-             2,000-key sample equal to the host model
+             missing keys (one fused ``lsm_probe`` launch each, by the
+             window path), and its ``FilterService`` bank probe (one
+             ``lsm_chain_probe`` launch per table); values exact, reads == 1 on
+             existing keys and <= 1 on misses, a 2,000-key sample equal to
+             the host model
 5. baselines chained / bloom (bits per key matched) / none stores at
              8 x 100,000 keys (the ``benchmarks/lsm_store.py`` grid) and
              the bloom store's bank probe (``bloom_probe``)
@@ -37,7 +40,13 @@ Phases, one line each; any failure exits non-zero and prints no result:
 8. times     each kernel's device time (20 calls in one CUDA graph,
              median of 5 replay windows of >= 5 ms), its time per eager
              call and its plain version's at its path's shapes, beside
-             bounds counted from the work these keys need
+             bounds counted from the work these keys need; lsm_probe by
+             both paths in turns (gather, window, window, gather), with
+             the window path's scratch bytes and peak device memory as the
+             allocator counts them, and both paths over the first T tables
+             (T from 1 to 16) at two batch sizes: where the window path
+             starts to pay; host-clock times of get_batch and of both
+             FilterService banks' probes
 
 Then one JSON line of kernel records, the card line and the result line.
 Launch counts are set to 0 just before each path is driven and read just
@@ -137,15 +146,16 @@ def main() -> None:
         from repro_torch.core.chained import (ChainedFilterAnd,
                                               ChainedFilterCascade)
         from repro_torch.core.lsm import LsmLevelChained
-        from repro_torch.kernels import _build, common, ops, ref, selfcheck
+        from repro_torch.kernels import (_build, common, lsm_window, ops,
+                                         ref, selfcheck)
         from repro_torch.kernels.bloom_probe import bloom_probe, bloom_probe_ref
         from repro_torch.kernels.cascade_probe import (cascade_probe,
                                                        cascade_probe_ref)
         from repro_torch.kernels.chained_probe import (chained_probe,
                                                        chained_probe_ref)
-        from repro_torch.kernels.lsm_probe import (lsm_chain_probe,
-                                                   lsm_chain_probe_ref,
-                                                   lsm_probe, lsm_probe_ref)
+        from repro_torch.kernels.lsm_probe import (
+            lsm_chain_probe, lsm_chain_probe_ref, lsm_probe, lsm_probe_gather,
+            lsm_probe_ref, lsm_probe_window)
         from repro_torch.kernels.xor_probe import (exact_probe,
                                                    exact_probe_ref, xor_probe,
                                                    xor_probe_ref)
@@ -164,6 +174,11 @@ def main() -> None:
     def reset_counts():
         for fn in kernels.values():
             fn.launches = 0
+        lsm_probe.window_launches = lsm_probe.gather_launches = 0
+
+    def path_counts() -> dict:
+        return {"window": lsm_probe.window_launches,
+                "gather": lsm_probe.gather_launches}
 
     def cuda_ms(fn, windows: int = TIME_WINDOWS) -> tuple[float, list]:
         """Median ms per call over ``windows`` CUDA-event windows, each of
@@ -219,9 +234,17 @@ def main() -> None:
     # -- 2. build -----------------------------------------------------------
     t0 = time.monotonic()
     libs = _build.build_all()
+    def spills(log: str) -> int:
+        """Bytes of spill stores and loads over a source's kernels."""
+        return sum(int(w) for line in log.splitlines()
+                   for w, b, kind in zip(line.split(), line.split()[1:],
+                                         line.split()[2:])
+                   if b == "bytes" and kind == "spill" and w.isdigit())
+
     regs = "; ".join(
         f"{s}: " + ", ".join(line.split("ptxas info    : ")[-1]
                              for line in log.splitlines() if "registers" in line)
+        + f" (spill bytes {spills(log)})"
         for s, log in sorted(_build.build_logs.items()))
     print(f"build: {sorted(libs)} in {time.monotonic() - t0:.1f} s | {regs}",
           flush=True)
@@ -230,14 +253,31 @@ def main() -> None:
     reset_counts()
     results = selfcheck.run_edge_checks(dev)
     torch.cuda.synchronize()
-    bad = {name: sum(b for k, _, b in results if k == name) for name in kernels}
+    bad = {name: max(b for k, _, b in results if k == name) for name in kernels}
     print("kernels: " + json.dumps([
-        {"name": name, "launches": fn.launches, "mismatches": bad[name],
+        {"name": name, "launches": fn.launches, "max_abs_err": bad[name],
          "cases": [c for k, c, _ in results if k == name]}
         for name, fn in kernels.items()]), flush=True)
     check(all(v == 0 for v in bad.values()), f"kernel != plain version: {bad}")
     check(all(fn.launches > 0 for fn in kernels.values()),
           "an edge check launched no kernel")
+    # both paths of lsm_probe, each against the plain version
+    paths = {}
+    for path in ("window", "gather"):
+        errs = [b for k, c, b in results if k == "lsm_probe"
+                and c.startswith(path)]
+        paths[f"lsm_probe {path}"] = {
+            "cases": len(errs), "max_abs_err": max(errs, default=-1),
+            "launches": path_counts()[path]}
+    part_err = {n: selfcheck.check_partition(device=dev, **a)
+                for n, a in selfcheck.PARTITION_CASES}
+    torch.cuda.synchronize()
+    print("kernels by path: " + json.dumps(paths) + " | partition scratch "
+          "vs torch twin, max_abs_err: " + json.dumps(part_err), flush=True)
+    check(all(p["cases"] > 0 and p["max_abs_err"] == 0 and p["launches"] > 0
+              for p in paths.values()), f"a path != plain version: {paths}")
+    check(all(v == 0 for v in part_err.values()),
+          "partition scratch != its torch twin")
 
     # -- 4. main path at full width -------------------------------------------
     per, n_fl, nq = PER_TABLE, FLUSHES, QUERIES
@@ -262,11 +302,14 @@ def main() -> None:
     bank_m, bank_p = store.service.probe(exist)
     main_launches = {"lsm_probe": lsm_probe.launches,
                      "lsm_chain_probe": lsm_chain_probe.launches}
+    main_paths = path_counts()
     torch.cuda.synchronize()
     check(main_launches["lsm_probe"] == 2,
           f"lsm_probe launched {main_launches['lsm_probe']} times for 2 get_batch")
     check(main_launches["lsm_chain_probe"] == n_fl,
           "the bank probe did not launch lsm_chain_probe once per table")
+    check(main_paths == {"window": 2, "gather": 0},
+          f"get_batch did not take lsm_probe's window path: {main_paths}")
     check(bool(f_e.all()) and not f_m.any(), "found flags wrong")
     check(bool((v_e == exist >> np.uint64(13)).all()), "values wrong")
     check(bool((r_e == 1).all()), "an existing key cost other than 1 read")
@@ -285,7 +328,8 @@ def main() -> None:
           f"{bank_mb:.1f} MB ({gen.tables.nbytes / (per * n_fl):.2f} B/key, "
           f"{store.filter_bits / (per * n_fl):.2f} filter bits/key) | "
           f"get_batch {nq}+{nq} keys: avg reads exist {r_e.mean():.6f} miss "
-          f"{r_m.mean():.6f} | launches {main_launches} | host model on "
+          f"{r_m.mean():.6f} | launches {main_launches}, lsm_probe by path "
+          f"{main_paths} | host model on "
           f"{len(sample)} keys MATCH", flush=True)
 
     # -- 5. baselines at the paper-scale grid ---------------------------------
@@ -552,7 +596,32 @@ def main() -> None:
     print(f"work: chained stage 1 passes {c_pass / fn:.6f} of {fn} queries; "
           f"cascade layers reached {c_layers / fn:.6f} and Bloom probes "
           f"{c_hashes / fn:.6f} per key over {len(layers)} layers", flush=True)
-    sources = {"lsm_probe": ("src/repro_torch/csrc/lsm_probe.cu",
+    # lsm_probe's gather path, timed beside the window path that the main
+    # path takes
+    gather_runs = {"lsm_probe": lambda: lsm_probe_gather(
+        gen.tables_dev, hi, lo, gen.desc_dev, chains=gen.chains)}
+    card_bytes = lsm_window.device_bytes(dev)
+
+    def window_kernels_us(fn, calls: int = 5) -> str:
+        """Device us per call of each kernel that ``fn`` launches
+        (torch.profiler), or why not measured."""
+        from torch.profiler import ProfilerActivity, profile
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+            rows = [(e.key, e.self_device_time_total / calls)
+                    for e in prof.key_averages()
+                    if e.self_device_time_total > 0]
+        except Exception as exc:          # the profiler is optional here
+            return f"not measured ({exc})"
+        def short(key: str) -> str:
+            key = key.replace("(anonymous namespace)::", "")
+            return key.split("(")[0].split("<")[0].split("::")[-1][:40]
+        return ", ".join(f"{short(k)} {us:.1f}"
+                         for k, us in sorted(rows, key=lambda r: -r[1]))
+    sources = {"lsm_probe": ("src/repro_torch/csrc/lsm_window.cu",
                              "src/repro/kernels/lsm_probe.py:270"),
                "lsm_chain_probe": ("src/repro_torch/csrc/lsm_probe.cu",
                                    "src/repro/kernels/lsm_probe.py:328"),
@@ -576,7 +645,56 @@ def main() -> None:
         err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
                   for g, w in zip(got, want))
         check(err == 0, f"{name}: kernel != plain version at the main shapes")
-        ms, per = graph_ms(kern)
+        extra, note = {}, ""
+        if name in gather_runs:
+            gather = gather_runs[name]
+            why = lsm_window.path_reason(gen.chains, n_keys,
+                                         gen.tables_dev.data_ptr(), card_bytes)
+            check(why is None, f"{name}: the main shapes left the window "
+                  f"path ({why})")
+            g_err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs()
+                            .max()) for g, w in zip(gather(), want))
+            check(g_err == 0, f"{name}: gather path != plain version")
+            # in turns on one card: gather, window, window, gather
+            g1, g_per1 = graph_ms(gather)
+            w1, per1 = graph_ms(kern)
+            w2, per2 = graph_ms(kern)
+            g2, g_per2 = graph_ms(gather)
+            ms, per = (w1 + w2) / 2, per1 + per2
+            # the scratch as the allocator counts it: the call's peak over
+            # what was held before it, less its outputs
+            del got
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = kern()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            scratch = peak - held - sum(t.numel() * t.element_size()
+                                        for t in out)
+            del out
+            counted = lsm_window.scratch_bytes(gen.chains, n_keys)
+            check(counted <= scratch < 1.01 * counted,
+                  f"{name}: scratch {scratch} B, lsm_window.scratch_bytes "
+                  f"counts {counted} B")
+            part_ms, _ = graph_ms(lambda: lsm_window.partition(
+                hi, lo, gen.desc_dev, chains=gen.chains))
+            breakdown = window_kernels_us(kern)
+            extra = {"gather_ms": (g1 + g2) / 2, "gather_max_abs_err": g_err,
+                     "partition_ms": part_ms, "scratch_bytes": scratch,
+                     "peak_bytes": peak}
+            note = (f" | gather path {g1:.4f} / {g2:.4f} ms, window path "
+                    f"{w1:.4f} / {w2:.4f} ms in turns (gather, window, "
+                    f"window, gather), gather max_abs_err {g_err} | window "
+                    f"scratch {scratch} B measured ({counted} B counted by "
+                    f"lsm_window.scratch_bytes), peak device memory {peak} B "
+                    f"over {held} B held before the call "
+                    f"({(peak - held) / 1e6:.1f} MB for the call, outputs "
+                    f"included; the card has {card_bytes} B) | "
+                    f"window path: partition alone {part_ms:.4f} ms; per "
+                    f"kernel, device us per call: {breakdown}")
+        else:
+            ms, per = graph_ms(kern)
         eager_ms, _ = cuda_ms(kern)
         plain_ms, _ = cuda_ms(plain, windows=1)
         bound_ms, bound_by = bound(n_bytes, n_ops, int32_per_s)
@@ -585,20 +703,55 @@ def main() -> None:
                         "replaces": replaces,
                         "launches": launches[name], "max_abs_err": err,
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": None})
+                        "bound_by": bound_by, "library_ms": None, **extra})
         print(f"time {name}: {ms:.4f} ms kernel on the device (graph "
               f"replay, median of windows "
               f"{', '.join(f'{t:.4f}' for t in per)}), {eager_ms:.4f} ms "
               f"per eager call (host launch path included), {plain_ms:.3f} "
               f"ms plain, bound {bound_ms:.4f} ms ({bound_by}: "
               f"{n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.3f} G int ops) at "
-              f"{n_keys} keys | {card}", flush=True)
+              f"{n_keys} keys{note} | {card}", flush=True)
     gathers = 3 * gen.n_tables * n + 2 * sum(passes)
     gather_gb = 32 * gathers / 1e9
-    print(f"time lsm_probe gather sectors: {gather_gb:.2f} GB (32 B x "
+    print(f"time lsm_probe gather path sectors: {gather_gb:.2f} GB (32 B x "
           f"{gathers / n:.3f} gathers per key: 3 per table, 2 per stage-1 "
-          f"pass) = {gather_gb / (records[0]['ms'] / 1e3):.0f} GB/s achieved",
-          flush=True)
+          f"pass) = {gather_gb / (records[0]['gather_ms'] / 1e3):.0f} GB/s "
+          f"achieved | window path: {64 * sum(passes) / 1e9:.3f} GB of "
+          f"stage-2 sectors (2 per stage-1 pass), "
+          f"{24 * n * gen.n_tables / 1e9:.3f} GB of scratch written and "
+          f"read (12 B per key-table), window copies of at least "
+          f"{sum(12 * c[1][2] * (c[1][3] - 2) for c in gen.chains) / 1e9:.3f}"
+          f" GB (one per bucket)", flush=True)
+
+    # where the window path starts to pay: both paths of lsm_probe over the
+    # bank's first T tables and the first m of 2,097,152 keys (the existing
+    # keys, then the missing ones), in turns (gather, window)
+    hi2, lo2 = common.key_lanes(np.concatenate([exist, miss]), dev)
+
+    def both_paths(m: int, t: int) -> tuple[float, float]:
+        args = (gen.tables_dev, hi2[:m], lo2[:m], gen.desc_dev[:t])
+        return (graph_ms(lambda: lsm_probe_gather(
+                    *args, chains=gen.chains[:t]))[0],
+                graph_ms(lambda: lsm_probe_window(
+                    *args, chains=gen.chains[:t]))[0])
+
+    for label, points in (
+            ("over the first T tables at 1048576 keys",
+             [(t, both_paths(n, t)) for t in (1, 2, 4, 8, 12, 14, 16)]),
+            ("over the first T tables at 2097152 keys",
+             [(t, both_paths(2 * n, t)) for t in (4, 8, 12, 16)]),
+            (f"over {gen.n_tables} tables at m keys",
+             [(m, both_paths(m, gen.n_tables)) for m in
+              (n // 4, n // 2, 3 * n // 4, n, 3 * n // 2, 2 * n)])):
+        pays = [x for x, _ in points
+                if all(w < g for u, (g, w) in points if u >= x)]
+        print(f"time lsm_probe crossover {label}, device ms (gather, "
+              f"window): " + ", ".join(f"{x} {g:.4f} {w:.4f}"
+                                       for x, (g, w) in points)
+              + f" | the window path is faster from "
+              f"{min(pays) if pays else 'none'} on; the rule: MIN_TABLES "
+              f"{lsm_window.MIN_TABLES}, MIN_KEYS {lsm_window.MIN_KEYS} | "
+              f"{card}", flush=True)
 
     def host_ms(fn, reps: int = 3) -> float:
         fn()                                             # warm
@@ -620,6 +773,14 @@ def main() -> None:
           f"{lanes_ms:.1f} ms, probe_batch {probe_ms:.1f} ms (kernel "
           f"{kern_ms:.3f} ms), overlay+resolve {get_ms - probe_ms:.1f} ms, "
           f"device busy {100 * kern_ms / get_ms:.1f}% | {card}", flush=True)
+    # the LSM bank's FilterService.probe: one lsm_chain_probe per table
+    lsm_bank_ms = host_ms(lambda: store.service.probe(exist))
+    chain_ms = n_fl * records[1]["ms"]
+    print(f"time LSM bank FilterService.probe: {nq / (lsm_bank_ms / 1e3):.0f} "
+          f"keys/s ({lsm_bank_ms:.1f} ms per {nq}-key probe over {n_fl} "
+          f"filters, host clock) | {n_fl} lsm_chain_probe launches, "
+          f"{chain_ms:.3f} ms on the device, device busy "
+          f"{100 * chain_ms / lsm_bank_ms:.1f}% | {card}", flush=True)
 
     # where a FilterService.probe goes: key split + upload, the five
     # launches on device lanes (outputs left on the card), the whole call

@@ -1,5 +1,6 @@
-// Fused LSM filter probe (lsm_probe) and the single-chain probe
-// (lsm_chain_probe) for Hopper (sm_90a).
+// Gather path of the fused LSM filter probe (lsm_probe: every probe that
+// its window path, lsm_window.cu, does not take) and the single-chain
+// probe (lsm_chain_probe: always) for Hopper (sm_90a).
 //
 // Replaces the TPU kernels src/repro/kernels/lsm_probe.py:lsm_probe (body
 // _kernel, vectorized _grouped_chain_hits + scalar _table_hit) and
@@ -19,8 +20,8 @@
 // lanes (coalesced key loads and output stores), a loop over the T <= 32
 // tables inside the thread so each key is loaded once per store and the
 // newest-first reduction (first_hit, hits_mask) stays in registers, stage
-// 2 skipped where stage 1 rejects, and the bank read through the
-// read-only path. Every table's tag and fields travel in one int32
+// 2 skipped where stage 1 rejects (in both kernels), and the bank read
+// through the read-only path. Every table's tag and fields travel in one int32
 // [T, 16] descriptor array, staged in shared memory once per block, so a
 // new generation with the same shape reuses the same code with new
 // inputs. No tensor cores or TMA: the work is gathers and integer hashing.
@@ -113,11 +114,10 @@ lsm_chain_probe_kernel(const uint32_t* __restrict__ words,
     s1 = probe::xor_stage1(words, h, l, fuse != 0, seed, seg_len, n_seg_m2,
                            xor_offset, alpha_mask, fp_seed);
   }
-  // Both stages on every key: at one table, skipping stage 2 where stage 1
-  // rejects measured no faster on the H100 (PERF.md, Findings).
-  const bool s2 = probe::othello_hit(words, h, l, ma, mb, oth_seed, off_a,
-                                     off_b);
-  member[i] = static_cast<int32_t>(s1 & s2);
+  // stage 2 only where stage 1 passes (s1 & s2, the same decision)
+  const bool s2 = s1 && probe::othello_hit(words, h, l, ma, mb, oth_seed,
+                                           off_a, off_b);
+  member[i] = static_cast<int32_t>(s2);
   // sequential probe count: the Othello stage is touched only when stage 1
   // fires; a chain without stage 1 costs one probe
   probes[i] = has_stage1 ? 1 + static_cast<int32_t>(s1) : 1;

@@ -1,5 +1,5 @@
-// Device functions shared by the probe kernels (lsm_probe.cu, bloom_probe.cu,
-// xor_probe.cu, chained_probe.cu, cascade_probe.cu).
+// Device functions shared by the probe kernels (lsm_probe.cu, lsm_window.cu,
+// bloom_probe.cu, xor_probe.cu, chained_probe.cu, cascade_probe.cu).
 //
 // Each mirrors, bit for bit, a host function of the port and of the JAX
 // package:
@@ -8,7 +8,7 @@
 //   xor_lookup                     <- kernels/common.py xor_slots + xor_lookup
 //   bloomier_match                 <- kernels/ref.py xor_probe_ref and
 //                                     exact_bloomier_ref
-//   othello_hit                    <- kernels/lsm_probe.py othello_hit
+//   othello_hit                    <- kernels/common.py othello_hit
 // All arithmetic is uint32 and wraps mod 2^32, as the host versions do:
 // seeds combine as seed*1000+i (Bloom), seed*7919+i (Xor slots), 3*seed+1
 // and 3*seed+2 (Othello). fastrange is __umulhi, the exact floor(h*n/2^32)
@@ -63,22 +63,37 @@ __device__ __forceinline__ bool bloom_hit(const uint32_t* __restrict__ words,
   return true;
 }
 
+// Fuse layout: the first of the key's three consecutive segments,
+// fastrange(hash(seed*7919+3), n_seg-2). The gather path (xor_lookup) and
+// the window path's partition (lsm_window.cu) both call this one function.
+__device__ __forceinline__ uint32_t window_start(uint32_t hi, uint32_t lo,
+                                                 uint32_t seed,
+                                                 uint32_t n_seg_m2) {
+  return fastrange(hash_u32(hi, lo, seed * 7919u + 3u), n_seg_m2);
+}
+
+// The key's slot i within its segment: fastrange(hash(seed*7919+i), seg_len).
+__device__ __forceinline__ uint32_t segment_slot(uint32_t hi, uint32_t lo,
+                                                 uint32_t seed, uint32_t i,
+                                                 uint32_t seg_len) {
+  return fastrange(hash_u32(hi, lo, seed * 7919u + i), seg_len);
+}
+
 // XOR of the key's three Bloomier slots. Uniform layout: slot i lies in
 // segment i. Fuse layout: a window of three consecutive segments starting
-// at fastrange(hash(seed*7919+3), n_seg-2).
+// at window_start.
 __device__ __forceinline__ uint32_t xor_lookup(const uint32_t* __restrict__ words,
                                                uint32_t hi, uint32_t lo,
                                                bool fuse, uint32_t seed,
                                                uint32_t seg_len,
                                                uint32_t n_seg_m2,
                                                uint32_t offset) {
-  uint32_t base = seed * 7919u;
-  uint32_t start = fuse ? fastrange(hash_u32(hi, lo, base + 3u), n_seg_m2) : 0u;
+  uint32_t start = fuse ? window_start(hi, lo, seed, n_seg_m2) : 0u;
   uint32_t v = 0u;
 #pragma unroll
   for (uint32_t i = 0; i < 3u; ++i) {
-    uint32_t h = fastrange(hash_u32(hi, lo, base + i), seg_len);
-    v ^= word(words, offset + (start + i) * seg_len + h);
+    v ^= word(words, offset + (start + i) * seg_len +
+                         segment_slot(hi, lo, seed, i, seg_len));
   }
   return v;
 }

@@ -41,6 +41,10 @@ SIGNATURES = {
     ("lsm_probe", "lsm_chain_probe_launch"):
         [P, P, P, P, P, I32, I32, U32, U32, U32, U32, U32, U32,
          U32, U32, U32, U32, U32, I64, P],
+    ("lsm_window", "lsm_window_partition_launch"):
+        [P, I32, P, P, I64, I32, P, P, P, P, P, P, P, P, P],
+    ("lsm_window", "lsm_window_probe_launch"):
+        [P, P, I32, I32, U32, P, P, P, P, P, P, P, I64, P],
     ("bloom_probe", "bloom_probe_launch"):
         [P, P, P, P, U32, U32, U32, U32, I64, P],
     ("xor_probe", "bloomier_probe_launch"):

@@ -2,9 +2,10 @@
 key blocking and the plain torch versions of the per-key lookups.
 
 Device tensors carry uint32 bit patterns as int32 (``to_device``), so no
-op on the card needs ``torch.uint32``. The plain lookups below (``bloom_hit``,
-``xor_slots``, ``xor_lookup``) take int32 banks and key lanes of any shape
-and compute in int64 lanes (``core.hashing``); they are what the CUDA
+op on the card needs ``torch.uint32``. The plain lookups below
+(``bloom_hit``, ``xor_slots``, ``xor_lookup``, ``othello_hit``) take int32
+banks and key lanes of any shape and compute in int64 lanes
+(``core.hashing``); they are what the CUDA
 device functions in ``csrc/probe_common.cuh`` compute, and each kernel's
 plain version is built from them.
 """
@@ -100,6 +101,17 @@ def xor_lookup(words, hi, lo, *, mode: str, seed: int, seg_len: int,
                            n_seg=n_seg, offset=offset)
     v = gather(words, s0) ^ gather(words, s1) ^ gather(words, s2)
     return v & ((1 << alpha) - 1)
+
+
+def othello_hit(words, hi, lo, *, ma: int, mb: int, seed: int,
+                offset_a: int, offset_b: int) -> torch.Tensor:
+    """Othello 1-bit classifier over packed LSB-first bitmaps -> bool.
+    Mirrors ``Othello.lookup`` bit for bit (bits_a[u] ^ bits_b[v])."""
+    u = H.t_hash_to_range(hi, lo, seed * 3 + 1, ma)
+    v = H.t_hash_to_range(hi, lo, seed * 3 + 2, mb)
+    ba = (gather(words, offset_a + (u >> 5)) >> (u & 31)) & 1
+    bb = (gather(words, offset_b + (v >> 5)) >> (v & 31)) & 1
+    return (ba ^ bb) == 1
 
 
 # ---------------------------------------------------------------------------

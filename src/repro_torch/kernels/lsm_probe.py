@@ -30,8 +30,15 @@ new generation needs new inputs, never a new build. ``pack_chain_params``
 (the JAX package's per-generation params lanes) is kept byte-identical
 for host parity only; no kernel reads it.
 
-On a CUDA tensor each wrapper launches its kernel (``csrc/lsm_probe.cu``)
-and counts the launch; on a CPU tensor it runs the plain version.
+On a CUDA tensor ``lsm_probe`` launches one of two hand-written paths
+and counts the launch, in ``launches`` and in ``window_launches`` or
+``gather_launches``: the window path (``csrc/lsm_window.cu``, stage 1
+probed from fuse windows copied into shared memory) wherever
+``lsm_window.path_reason`` sends the bank and batch there, the gather
+path (``csrc/lsm_probe.cu``, one thread per key) everywhere else. Both
+give the same bits. ``lsm_probe_window`` and ``lsm_probe_gather`` call
+one path directly. ``lsm_chain_probe`` (one table) has the gather kernel
+only. On a CPU tensor each wrapper runs its plain version.
 """
 from __future__ import annotations
 
@@ -40,8 +47,8 @@ import torch
 
 from repro_torch.core import hashing as H
 from repro_torch.core.hashing import MASK32
-from . import _build
-from .common import bloom_hit, check_probe_args, gather, xor_lookup
+from . import _build, lsm_window
+from .common import bloom_hit, check_probe_args, othello_hit, xor_lookup
 
 MAX_TABLES = 32     # hits_mask is an int32 bitmask
 
@@ -152,17 +159,6 @@ def _check_chains(chains: tuple) -> None:
 # plain versions (torch, int64-carried uint32 lanes)
 # ---------------------------------------------------------------------------
 
-def othello_hit(words, hi, lo, *, ma: int, mb: int, seed: int,
-                offset_a: int, offset_b: int) -> torch.Tensor:
-    """Othello 1-bit classifier over packed LSB-first bitmaps -> bool.
-    Mirrors ``Othello.lookup`` bit for bit (bits_a[u] ^ bits_b[v])."""
-    u = H.t_hash_to_range(hi, lo, seed * 3 + 1, ma)
-    v = H.t_hash_to_range(hi, lo, seed * 3 + 2, mb)
-    ba = (gather(words, offset_a + (u >> 5)) >> (u & 31)) & 1
-    bb = (gather(words, offset_b + (v >> 5)) >> (v & 31)) & 1
-    return (ba ^ bb) == 1
-
-
 def _chain_stage1(words, hi, lo, xor_params) -> torch.Tensor:
     """Stage-1 α-bit fingerprint match (None ⇒ pass-all)."""
     if xor_params is None:
@@ -221,11 +217,23 @@ def lsm_chain_probe_ref(words, hi, lo, *, chain: tuple
 
 
 # ---------------------------------------------------------------------------
-# wrappers: the CUDA kernel on a CUDA tensor, the plain version on the CPU
+# wrappers: a CUDA kernel on a CUDA tensor, the plain version on the CPU
 # ---------------------------------------------------------------------------
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_lsm_args(words, hi, lo, desc, chains) -> None:
+    _check_chains(chains)
+    check_probe_args(words, hi, lo)
+    check_probe_args(words, desc)
+    if desc.shape != (len(chains), DESC_K):
+        raise ValueError(f"desc must be [{len(chains)}, {DESC_K}], "
+                         f"got {list(desc.shape)}")
+    if not words.is_cuda and not torch.equal(
+            desc, torch.from_numpy(chain_descriptors(chains))):
+        raise ValueError("desc is not chain_descriptors(chains)")
 
 
 def lsm_probe(words, hi, lo, desc, *, chains: tuple
@@ -234,16 +242,24 @@ def lsm_probe(words, hi, lo, desc, *, chains: tuple
     (e.g. the JAX package's [R, 128] blocks); desc: int32 [T, DESC_K]
     ``chain_descriptors(chains)`` on the bank's device; chains: per-table
     descriptors, newest first. Returns (first_hit, hits_mask) int32 of
-    hi's shape."""
-    _check_chains(chains)
-    check_probe_args(words, hi, lo)
-    check_probe_args(words, desc)
-    if desc.shape != (len(chains), DESC_K):
-        raise ValueError(f"desc must be [{len(chains)}, {DESC_K}], "
-                         f"got {list(desc.shape)}")
+    hi's shape. On the card the window path serves every probe that
+    ``lsm_window.path_reason`` sends to it, the gather path every other."""
+    _check_lsm_args(words, hi, lo, desc, chains)
     if not words.is_cuda:
-        if not torch.equal(desc, torch.from_numpy(chain_descriptors(chains))):
-            raise ValueError("desc is not chain_descriptors(chains)")
+        return lsm_probe_ref(words, hi, lo, chains=chains)
+    words = words.contiguous()
+    if lsm_window.path_reason(chains, hi.numel(), words.data_ptr(),
+                              lsm_window.device_bytes(words.device)) is None:
+        return lsm_probe_window(words, hi, lo, desc, chains=chains)
+    return lsm_probe_gather(words, hi, lo, desc, chains=chains)
+
+
+def lsm_probe_gather(words, hi, lo, desc, *, chains: tuple
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``lsm_probe``'s gather path (``lsm_probe_kernel``, one thread per
+    key, every table's slots gathered from the bank) on any bank."""
+    _check_lsm_args(words, hi, lo, desc, chains)
+    if not words.is_cuda:
         return lsm_probe_ref(words, hi, lo, chains=chains)
     words, desc = words.contiguous(), desc.contiguous()
     hi, lo = hi.contiguous(), lo.contiguous()
@@ -255,16 +271,38 @@ def lsm_probe(words, hi, lo, desc, *, chains: tuple
             _stream(words))
     _build.check(err, "lsm_probe")
     lsm_probe.launches += 1
+    lsm_probe.gather_launches += 1
     return first, mask
 
 
-lsm_probe.launches = 0
+def lsm_probe_window(words, hi, lo, desc, *, chains: tuple
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``lsm_probe``'s window path (``csrc/lsm_window.cu``) on any probe
+    that its kernels serve; raises ValueError where
+    ``lsm_window.window_reason`` does not admit it."""
+    _check_lsm_args(words, hi, lo, desc, chains)
+    words = words.contiguous()
+    lsm_window.check(chains, hi.numel(), words.data_ptr())
+    if not words.is_cuda:
+        return lsm_window.lsm_probe_window_ref(words, hi, lo, chains=chains)
+    first, mask = lsm_window.probe(
+        words, hi.contiguous().reshape(-1), lo.contiguous().reshape(-1),
+        desc.contiguous(), chains=chains)
+    lsm_probe.launches += 1
+    lsm_probe.window_launches += 1
+    return first.reshape(hi.shape), mask.reshape(hi.shape)
+
+
+# launches of either path, and of each
+lsm_probe.launches = lsm_probe.window_launches = lsm_probe.gather_launches = 0
 
 
 def lsm_chain_probe(words, hi, lo, *, chain: tuple
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Single-filter probe of one LsmChainLayout (``layout.probe_params()``)
-    -> (member, probes) int32 of hi's shape."""
+    -> (member, probes) int32 of hi's shape. One table: the gather kernel
+    on the card (the window path's partition costs more than one table's
+    gathers save; PERF.md, Findings)."""
     check_probe_args(words, hi, lo)
     if chain[0] != "chain":
         raise ValueError(f"lsm_chain_probe takes a 'chain' descriptor, "

@@ -7,11 +7,13 @@ layouts, a chain without stage 1, a Bloom table and an always-read table
 wraps mod 2**32. ``filter_case`` builds one filter of the serving path
 (an α-bit Xor filter, an exact Bloomier, a ChainedFilterAnd, a cascade)
 behind a Bloom table in one bank, with seeds of 2**31 and above.
-``run_edge_checks`` launches each kernel on those banks and counts the
-outputs that differ from the plain version on the same inputs (integer
-outputs: exact equality). The card's test file and ``chip_smoke.py``
-both run it; the CPU parity tests probe the same banks with the JAX
-package's kernels.
+``run_edge_checks`` launches each kernel on those banks (``lsm_probe``
+through its wrapper and through each of its two paths) and returns
+the largest absolute difference from the plain version on the same
+inputs (integer outputs: 0 is exact equality); ``check_partition`` holds
+the window path's partition scratch against its torch twin. The card's
+test file and ``chip_smoke.py`` both run them; the CPU parity tests probe
+the same banks with the JAX package's kernels.
 """
 from __future__ import annotations
 
@@ -28,12 +30,13 @@ from repro_torch.core.lsm import ChainedTableFilter
 from repro_torch.core.othello import DynamicExactFilter
 from repro_torch.core.tables import (BloomTable, LsmChainLayout, OthelloTable,
                                      concat_tables)
-from . import common
+from . import common, lsm_window
 from .bloom_probe import bloom_probe, bloom_probe_ref
 from .cascade_probe import cascade_descriptors, cascade_probe, cascade_probe_ref
 from .chained_probe import chained_probe, chained_probe_ref
 from .lsm_probe import (chain_descriptors, lsm_chain_probe,
-                        lsm_chain_probe_ref, lsm_probe, lsm_probe_ref)
+                        lsm_chain_probe_ref, lsm_probe, lsm_probe_gather,
+                        lsm_probe_ref, lsm_probe_window)
 from .ops import chained_and_params
 from .xor_probe import exact_probe, exact_probe_ref, xor_probe, xor_probe_ref
 
@@ -91,27 +94,66 @@ def edge_bank(kinds, per: int = 1000, seed: int = 0):
 
 
 def _differ(a: torch.Tensor, b: torch.Tensor) -> int:
-    return int((a != b).sum())
+    """Largest absolute difference of two integer outputs (0 = equal)."""
+    if a.numel() == 0 and b.numel() == 0:
+        return 0
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
-def check_lsm_probe(kinds, device, per: int = 1000, seed: int = 0) -> int:
-    """Mismatching outputs of lsm_probe vs lsm_probe_ref (0 = agree)."""
+# lsm_probe's entry points: the wrapper (window path where
+# lsm_window.path_reason sends the probe, else gather) or one path
+LSM_PATHS = {None: lsm_probe, "window": lsm_probe_window,
+             "gather": lsm_probe_gather}
+
+
+def lsm_case(kinds, device, per: int = 1000, seed: int = 0,
+             n: int | None = None):
+    """(words, hi, lo, chains) on ``device`` of ``edge_bank(kinds)``, its
+    first ``n`` query keys (all when None)."""
     tables, chains, q, _ = edge_bank(kinds, per, seed)
-    words = common.to_device(tables, device)
-    hi, lo = common.key_lanes(q, device)
+    hi, lo = common.key_lanes(q[:n], device)
+    return common.to_device(tables, device), hi, lo, chains
+
+
+def check_lsm_probe(kinds, device, per: int = 1000, seed: int = 0,
+                    path: str | None = None, n: int | None = None) -> int:
+    """Largest absolute error of lsm_probe (or its ``path``) against
+    lsm_probe_ref (0 = agree)."""
+    words, hi, lo, chains = lsm_case(kinds, device, per, seed, n)
     desc = torch.from_numpy(chain_descriptors(chains)).to(device)
-    got = lsm_probe(words, hi, lo, desc, chains=chains)
+    got = LSM_PATHS[path](words, hi, lo, desc, chains=chains)
     want = lsm_probe_ref(words, hi, lo, chains=chains)
-    return sum(_differ(g, w) for g, w in zip(got, want))
+    return max(_differ(g, w) for g, w in zip(got, want))
 
 
-def check_lsm_chain_probe(kind, device, per: int = 1000, seed: int = 0) -> int:
-    tables, chains, q, _ = edge_bank(("bloom", kind), per, seed)
-    words = common.to_device(tables, device)
-    hi, lo = common.key_lanes(q, device)
+def check_lsm_chain_probe(kind, device, per: int = 1000, seed: int = 0,
+                          n: int | None = None) -> int:
+    words, hi, lo, chains = lsm_case(("bloom", kind), device, per, seed, n)
     got = lsm_chain_probe(words, hi, lo, chain=chains[1])
     want = lsm_chain_probe_ref(words, hi, lo, chain=chains[1])
-    return sum(_differ(g, w) for g, w in zip(got, want))
+    return max(_differ(g, w) for g, w in zip(got, want))
+
+
+# the partition pass against its torch twin: (case name, edge_bank args)
+PARTITION_CASES = (
+    ("T=1 fuse", dict(kinds=("fuse",))),
+    ("T=16 fuse", dict(kinds=("fuse",) * 16)),
+    ("T=32 fuse", dict(kinds=("fuse",) * 32)),
+    ("T=16 one window each, n=1", dict(kinds=("fuse",) * 16, per=2, n=1)),
+    ("T=8 empty windows, n=6", dict(kinds=("fuse",) * 8, per=20, seed=1,
+                                    n=6)),
+)
+
+
+def check_partition(kinds, device, per: int = 1000, seed: int = 0,
+                    n: int | None = None) -> int:
+    """Largest absolute error of the CUDA partition pass's scratch
+    against ``lsm_window.partition_ref`` (0 = agree)."""
+    words, hi, lo, chains = lsm_case(kinds, device, per, seed, n)
+    desc = torch.from_numpy(chain_descriptors(chains)).to(device)
+    got = lsm_window.partition(hi, lo, desc, chains=chains)
+    want = lsm_window.partition_ref(hi, lo, chains)
+    return max(_differ(g, w) for g, w in zip(got, want))
 
 
 def check_bloom_probe(device, per: int = 1000, seed: int = 0) -> int:
@@ -206,13 +248,13 @@ def filter_calls(kernel: str, lay, words: torch.Tensor):
 
 def check_filter_kernel(kernel: str, arg, device, per: int = 1000,
                         seed: int = 0) -> int:
-    """Mismatching outputs of a filter-serving kernel vs its plain version
-    on ``filter_case(kernel, arg)`` (0 = agree)."""
+    """Largest absolute error of a filter-serving kernel against its
+    plain version on ``filter_case(kernel, arg)`` (0 = agree)."""
     tables, lay, q, _ = filter_case(kernel, arg, per, seed)
     words = common.to_device(tables, device)
     hi, lo = common.key_lanes(q, device)
     kern, plain = filter_calls(kernel, lay, words)
-    return sum(_differ(g, w) for g, w in zip(kern(hi, lo), plain(hi, lo)))
+    return max(_differ(g, w) for g, w in zip(kern(hi, lo), plain(hi, lo)))
 
 
 def filter_edge_cases() -> list[tuple[str, str, object]]:
@@ -230,10 +272,18 @@ def edge_cases() -> list[tuple[str, str, object]]:
     """(kernel, case name, argument) for every edge shape."""
     mixed = ("fuse", "uniform", "nos1", "bloom", "always", "fuse", "uniform",
              "fuse")
-    cases = [("lsm_probe", f"T=1 {k}", (k,)) for k in KINDS]
-    cases += [("lsm_probe", "T=16 mixed", mixed * 2),
-              ("lsm_probe", "T=32 mixed", mixed * 4)]
-    cases += [("lsm_chain_probe", k, k) for k in ("fuse", "uniform", "nos1")]
+    cases = [("lsm_probe", f"T=1 {k}", dict(kinds=(k,))) for k in KINDS]
+    cases += [("lsm_probe", "T=16 mixed", dict(kinds=mixed * 2)),
+              ("lsm_probe", "T=32 mixed", dict(kinds=mixed * 4))]
+    # both paths of the all-fuse banks the window path serves
+    for path in ("window", "gather"):
+        cases += [("lsm_probe", f"{path} T={t} fuse",
+                   dict(kinds=("fuse",) * t, path=path)) for t in (1, 16, 32)]
+    cases += [("lsm_probe", f"window {name}", dict(args, path="window"))
+              for name, args in PARTITION_CASES if "n=" in name]
+    cases += [("lsm_chain_probe", k, dict(kind=k))
+              for k in ("fuse", "uniform", "nos1")]
+    cases += [("lsm_chain_probe", "fuse, n=1", dict(kind="fuse", per=2, n=1))]
     cases += [("bloom_probe", "seed>=2**31 offset>0", None)]
     cases += filter_edge_cases()
     cases += [("cascade_probe", f"L={DEEP_CASCADE} descriptor in global "
@@ -242,17 +292,17 @@ def edge_cases() -> list[tuple[str, str, object]]:
 
 
 def check_case(kernel: str, arg, device, per: int = 1000) -> int:
-    """Mismatches of one ``edge_cases`` entry on ``device``."""
+    """Largest absolute error of one ``edge_cases`` entry on ``device``."""
     if kernel == "lsm_probe":
-        return check_lsm_probe(arg, device, per)
+        return check_lsm_probe(device=device, **{"per": per, **arg})
     if kernel == "lsm_chain_probe":
-        return check_lsm_chain_probe(arg, device, per)
+        return check_lsm_chain_probe(device=device, **{"per": per, **arg})
     if kernel == "bloom_probe":
         return check_bloom_probe(device, per)
     return check_filter_kernel(kernel, arg, device, per)
 
 
 def run_edge_checks(device, per: int = 1000) -> list[tuple[str, str, int]]:
-    """(kernel, case, mismatches) for every edge case on ``device``."""
+    """(kernel, case, max_abs_err) for every edge case on ``device``."""
     return [(kernel, name, check_case(kernel, arg, device, per))
             for kernel, name, arg in edge_cases()]

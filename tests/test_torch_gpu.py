@@ -14,7 +14,7 @@ from repro_torch.core.bloom import BloomFilter  # noqa: E402
 from repro_torch.core.bloomier import ExactBloomier, XorFilter  # noqa: E402
 from repro_torch.core.chained import (ChainedFilterAnd,  # noqa: E402
                                       ChainedFilterCascade)
-from repro_torch.kernels import ops, selfcheck  # noqa: E402
+from repro_torch.kernels import common, lsm_window, ops, selfcheck  # noqa: E402
 from repro_torch.kernels.bloom_probe import bloom_probe  # noqa: E402
 from repro_torch.kernels.cascade_probe import (cascade_descriptors,  # noqa: E402
                                                cascade_probe)
@@ -50,6 +50,45 @@ def test_kernel_matches_plain_version(cuda, case):
     torch.cuda.synchronize()
     assert bad == 0
     assert counter.launches == before + 1
+
+
+@pytest.mark.parametrize("case", range(len(selfcheck.PARTITION_CASES)),
+                         ids=[n for n, _ in selfcheck.PARTITION_CASES])
+def test_partition_matches_torch_twin(cuda, case):
+    _, args = selfcheck.PARTITION_CASES[case]
+    assert selfcheck.check_partition(device=cuda, **args) == 0
+    torch.cuda.synchronize()
+
+
+def test_path_counters_follow_the_eligibility_rule(cuda):
+    fuse16 = ("fuse",) * 16
+    card = lsm_window.device_bytes(cuda)
+    short = ("fuse",) * (lsm_window.MIN_TABLES - 1)
+    cases = [(fuse16, None), (fuse16, 1), (fuse16, 20),
+             (fuse16, lsm_window.MIN_KEYS), (fuse16, lsm_window.MIN_KEYS - 1),
+             (short, lsm_window.MIN_KEYS), (("fuse", "uniform") * 8, None),
+             (("fuse", "bloom") * 8, None), (("fuse", "always") * 8, None),
+             (("nos1",), None)]
+    taken = set()
+    for kinds, n in cases:
+        words, hi, lo, chains = selfcheck.lsm_case(kinds, cuda, per=1000)
+        if n is not None:    # n random keys (most of them miss)
+            hi, lo = common.key_lanes(H.random_keys(n, seed=5), cuda)
+        desc = torch.from_numpy(chain_descriptors(chains)).to(cuda)
+        window = lsm_window.path_reason(chains, hi.numel(), words.data_ptr(),
+                                        card) is None
+        taken.add(window)
+        before = (lsm_probe.window_launches, lsm_probe.gather_launches)
+        lsm_probe(words, hi, lo, desc, chains=chains)
+        assert (lsm_probe.window_launches - before[0],
+                lsm_probe.gather_launches - before[1]) == \
+            ((1, 0) if window else (0, 1)), (kinds, n)
+        # one table: lsm_chain_probe has the gather kernel only
+        before = lsm_chain_probe.launches
+        lsm_chain_probe(words, hi, lo, chain=chains[0])
+        assert lsm_chain_probe.launches == before + 1
+    assert taken == {True, False}        # both paths were taken
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("kind", ["chained", "bloom", "none"])
