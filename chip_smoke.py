@@ -11,8 +11,12 @@ Phases, one line each; any failure exits non-zero and prints no result:
              window per table at n = 1, empty windows;
              xor: alpha in {1, 8, 32} x uniform/fuse; exact: strategy a/b;
              chained: with and without stage 1, eps > 0; cascade: L in
-             {1, 2, 5, 18, 1100}; seeds >= 2**31) and the window path's
-             partition scratch against its torch twin: exact equality
+             {1, 2, 5, 18, 1100}; seeds >= 2**31; both paths of bloom_probe
+             and cascade_probe: a bitmap one chunk under and over what one
+             block stages, 1.2 MB, k = 0 and 1, n = 1, 1061 and 1,500,003,
+             seed 2**32-1, cascades of L = 1, 18 and 256 staged or in L2)
+             and the window path's partition scratch against its torch
+             twin: exact equality
 4. main      the paper's §5.4 point query at full width: a chained
              ``LsmStore`` of 16 flushes x 500,000 keys (8M keys, a ~41 MB
              bank), ``get_batch`` of 1,048,576 existing and 1,048,576
@@ -23,7 +27,8 @@ Phases, one line each; any failure exits non-zero and prints no result:
              the host model
 5. baselines chained / bloom (bits per key matched) / none stores at
              8 x 100,000 keys (the ``benchmarks/lsm_store.py`` grid) and
-             the bloom store's bank probe (``bloom_probe``)
+             the bloom store's bank probe (``bloom_probe``, each table's
+             path as ``bloom_onchip.onchip_reason`` picks it)
 6. serving   zipfian read-heavy traffic with compaction, replayed against
              a dict
 7. filters   the paper's §5.1-§5.3 serving bank at full width, as
@@ -33,7 +38,9 @@ Phases, one line each; any failure exits non-zero and prints no result:
              ChainedFilterCascade) packed into one ~28.5 MB bank, and
              ``FilterService.probe`` of 4,000,000 queries (one launch each
              of bloom_probe, xor_probe, exact_probe, chained_probe and
-             cascade_probe); member and probes equal to the host filters on
+             cascade_probe, bloom_probe's and cascade_probe's paths as
+             ``onchip_reason`` picks them); member and probes equal to the
+             host filters on
              every query, the exact filters exact over their universes,
              bits per key against the lower bound, and ``refresh_tables``
              or ``rebuild`` after online cascade training
@@ -45,7 +52,13 @@ Phases, one line each; any failure exits non-zero and prints no result:
              the window path's scratch bytes and peak device memory as the
              allocator counts them, and both paths over the first T tables
              (T from 1 to 16) at two batch sizes: where the window path
-             starts to pay; host-clock times of get_batch and of both
+             starts to pay; bloom_probe (grid table 0 at 1,048,576 and at
+             200,000 keys, the filters bank's Bloom at 4,000,000) and
+             cascade_probe by both paths in turns (gather, on-chip,
+             on-chip, gather), both paths over 2^10 to 4,000,000 keys for
+             four bitmaps (where the on-chip path pays), and what bounds a
+             Bloom probe (k = 1, and k = 8 over a full and a half-full
+             bitmap); host-clock times of get_batch and of both
              FilterService banks' probes
 
 Then one JSON line of kernel records, the card line and the result line.
@@ -146,10 +159,15 @@ def main() -> None:
         from repro_torch.core.chained import (ChainedFilterAnd,
                                               ChainedFilterCascade)
         from repro_torch.core.lsm import LsmLevelChained
-        from repro_torch.kernels import (_build, common, lsm_window, ops,
-                                         ref, selfcheck)
-        from repro_torch.kernels.bloom_probe import bloom_probe, bloom_probe_ref
+        from repro_torch.kernels import (_build, bloom_onchip, common,
+                                         lsm_window, ops, ref, selfcheck)
+        from repro_torch.kernels.bloom_probe import (bloom_probe,
+                                                     bloom_probe_gather,
+                                                     bloom_probe_onchip,
+                                                     bloom_probe_ref)
         from repro_torch.kernels.cascade_probe import (cascade_probe,
+                                                       cascade_probe_gather,
+                                                       cascade_probe_onchip,
                                                        cascade_probe_ref)
         from repro_torch.kernels.chained_probe import (chained_probe,
                                                        chained_probe_ref)
@@ -175,10 +193,24 @@ def main() -> None:
         for fn in kernels.values():
             fn.launches = 0
         lsm_probe.window_launches = lsm_probe.gather_launches = 0
+        for fn in (bloom_probe, cascade_probe):
+            fn.onchip_launches = fn.gather_launches = 0
 
     def path_counts() -> dict:
         return {"window": lsm_probe.window_launches,
                 "gather": lsm_probe.gather_launches}
+
+    def bloom_paths(fn) -> dict:
+        """Launches of bloom_probe's or cascade_probe's two paths."""
+        return {"onchip": fn.onchip_launches, "gather": fn.gather_launches}
+
+    def rule_paths(layer_sets, n_keys: int, words) -> dict:
+        """The paths bloom_onchip.onchip_reason picks for each of
+        ``layer_sets`` at ``n_keys`` keys over the bank ``words``."""
+        onchip = sum(bloom_onchip.onchip_reason(
+            layers, n_keys, words.numel(), words.data_ptr()) is None
+            for layers in layer_sets)
+        return {"onchip": onchip, "gather": len(layer_sets) - onchip}
 
     def cuda_ms(fn, windows: int = TIME_WINDOWS) -> tuple[float, list]:
         """Median ms per call over ``windows`` CUDA-event windows, each of
@@ -269,6 +301,14 @@ def main() -> None:
         paths[f"lsm_probe {path}"] = {
             "cases": len(errs), "max_abs_err": max(errs, default=-1),
             "launches": path_counts()[path]}
+    for name, fn in (("bloom_probe", bloom_probe),
+                     ("cascade_probe", cascade_probe)):
+        for path in ("onchip", "gather"):
+            errs = [b for k, c, b in results if k == name
+                    and c.startswith(path)]
+            paths[f"{name} {path}"] = {
+                "cases": len(errs), "max_abs_err": max(errs, default=-1),
+                "launches": bloom_paths(fn)[path]}
     part_err = {n: selfcheck.check_partition(device=dev, **a)
                 for n, a in selfcheck.PARTITION_CASES}
     torch.cuda.synchronize()
@@ -368,10 +408,20 @@ def main() -> None:
             main_launches["bloom_probe"] = bloom_probe.launches
             check(lsm_probe.launches == 2 and bloom_probe.launches == n_b,
                   "the bloom store's path missed its kernels")
+            grid_paths = bloom_paths(bloom_probe)
+            want_paths = rule_paths(
+                [((lay.m_bits, lay.k, lay.seed, lay.offset),)
+                 for lay in s.service.state.bank.layouts],
+                len(exist_b), s.service.state.tables)
+            check(grid_paths == want_paths,
+                  f"the bloom bank probe took paths {grid_paths}, the rule "
+                  f"says {want_paths}")
     check(reads["chained_exist"] == 1.0 and reads["chained_miss"] <= 1.0,
           "chained store broke the <= 1 read bound")
     print(f"baselines: {n_b} tables x {per_b} keys, {bpk:.2f} bits/key, "
-          f"{nq_b} queries: avg reads " + json.dumps(reads), flush=True)
+          f"{nq_b} queries: avg reads " + json.dumps(reads) + " | bloom "
+          f"bank probe of {nq_b} keys, bloom_probe by path {grid_paths} "
+          f"(bloom_onchip.onchip_reason: {want_paths})", flush=True)
 
     # -- 6. serving with compaction ----------------------------------------
     serve = LsmStore(seed=11, memtable_capacity=25_000, compact_min_run=4,
@@ -433,6 +483,18 @@ def main() -> None:
     torch.cuda.synchronize()
     check(all(v == 1 for v in filter_launches.values()),
           f"FilterService.probe launches {filter_launches}, not one each")
+    filter_paths = {"bloom_probe": bloom_paths(bloom_probe),
+                    "cascade_probe": bloom_paths(cascade_probe)}
+    flay0, flay4 = fstate.bank.layouts[0], fstate.bank.layouts[4]
+    filter_rule = {
+        "bloom_probe": rule_paths([((flay0.m_bits, flay0.k, flay0.seed,
+                                     flay0.offset),)], F_QUERIES,
+                                  fstate.tables),
+        "cascade_probe": rule_paths([flay4.probe_params()], F_QUERIES,
+                                    fstate.tables)}
+    check(filter_paths == filter_rule,
+          f"the filters bank probe took paths {filter_paths}, the rule says "
+          f"{filter_rule}")
     fstats = svc.stats.as_dict()
     # every query against the host filters: member, probes, stats
     host_probes = [np.ones(F_QUERIES, np.int64)] * 3 + [
@@ -466,6 +528,8 @@ def main() -> None:
           f"{t_fbuild:.1f} s (" + ", ".join(f"{k} {v:.1f}" for k, v in
                                               builds.items())
           + f") | probe of {F_QUERIES} queries: launches {filter_launches}, "
+          f"bloom_probe and cascade_probe by path {filter_paths} "
+          f"(bloom_onchip.onchip_reason: {filter_rule}), "
           f"member and probes == host on every query, avg_probes "
           f"{[round(float(p), 6) for p in fstats['avg_probes']]}, hit_rate "
           f"{[round(float(h), 6) for h in fstats['hit_rate']]} | exact over their "
@@ -593,14 +657,55 @@ def main() -> None:
             OPS_KEY * fn + OPS_TABLE * c_layers + OPS_BLOOM_PROBE * c_hashes,
             fn),
     })
+    # bloom_probe at the filters bank's shape: its Bloom filter under the
+    # 4,000,000 queries, the work counted as for grid table 0
+    lb = flays[0]
+    fbargs = dict(m_bits=lb.m_bits, k=lb.k, seed=lb.seed, offset=lb.offset)
+    f_bloom_probes = sum(int(bloom_probe_ref(fwords, fhi, flo,
+                                             **dict(fbargs, k=j)).sum())
+                         for j in range(lb.k))
     print(f"work: chained stage 1 passes {c_pass / fn:.6f} of {fn} queries; "
           f"cascade layers reached {c_layers / fn:.6f} and Bloom probes "
-          f"{c_hashes / fn:.6f} per key over {len(layers)} layers", flush=True)
+          f"{c_hashes / fn:.6f} per key over {len(layers)} layers; the "
+          f"filters bank's Bloom probes {f_bloom_probes / fn:.6f} per key "
+          f"of k = {lb.k}", flush=True)
+    # bloom_probe's and cascade_probe's two paths, each timed beside the
+    # other, and the layer sets onchip_reason decides by
+    onchip_runs = {
+        "bloom_probe": (
+            lambda: (bloom_probe_gather(bstate.tables, hi, lo, **bargs),),
+            lambda: (bloom_probe_onchip(bstate.tables, hi, lo, **bargs),),
+            ((blay.m_bits, blay.k, blay.seed, blay.offset),), bstate.tables),
+        "cascade_probe": (
+            lambda: cascade_probe_gather(fwords, fhi, flo, cdesc,
+                                         layers=layers),
+            lambda: cascade_probe_onchip(fwords, fhi, flo, cdesc,
+                                         layers=layers),
+            layers, fwords),
+    }
     # lsm_probe's gather path, timed beside the window path that the main
     # path takes
     gather_runs = {"lsm_probe": lambda: lsm_probe_gather(
         gen.tables_dev, hi, lo, gen.desc_dev, chains=gen.chains)}
     card_bytes = lsm_window.device_bytes(dev)
+
+    def max_err(got, want) -> int:
+        return max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+                   for g, w in zip(got, want))
+
+    def paths_in_turns(gather, onchip, want) -> tuple[dict, str]:
+        """Both paths against the plain outputs ``want``, then timed in
+        turns (gather, on-chip, on-chip, gather) on one card."""
+        errs = (max_err(gather(), want), max_err(onchip(), want))
+        check(errs == (0, 0), f"a path != plain version: {errs}")
+        g1, o1 = graph_ms(gather)[0], graph_ms(onchip)[0]
+        o2, g2 = graph_ms(onchip)[0], graph_ms(gather)[0]
+        return ({"gather_ms": (g1 + g2) / 2, "onchip_ms": (o1 + o2) / 2},
+                f"gather path {g1:.4f} / {g2:.4f} ms, on-chip path "
+                f"{o1:.4f} / {o2:.4f} ms in turns (gather, on-chip, on-chip, "
+                f"gather); device us per call: gather "
+                f"{window_kernels_us(gather)}; on-chip "
+                f"{window_kernels_us(onchip)}")
 
     def window_kernels_us(fn, calls: int = 5) -> str:
         """Device us per call of each kernel that ``fn`` launches
@@ -625,7 +730,7 @@ def main() -> None:
                              "src/repro/kernels/lsm_probe.py:270"),
                "lsm_chain_probe": ("src/repro_torch/csrc/lsm_probe.cu",
                                    "src/repro/kernels/lsm_probe.py:328"),
-               "bloom_probe": ("src/repro_torch/csrc/bloom_probe.cu",
+               "bloom_probe": ("src/repro_torch/csrc/bloom_onchip.cu",
                                "src/repro/kernels/bloom_probe.py:32"),
                "xor_probe": ("src/repro_torch/csrc/xor_probe.cu",
                              "src/repro/kernels/xor_probe.py:65"),
@@ -633,8 +738,15 @@ def main() -> None:
                                "src/repro/kernels/xor_probe.py:77"),
                "chained_probe": ("src/repro_torch/csrc/chained_probe.cu",
                                  "src/repro/kernels/chained_probe.py:58"),
-               "cascade_probe": ("src/repro_torch/csrc/cascade_probe.cu",
+               "cascade_probe": ("src/repro_torch/csrc/bloom_onchip.cu",
                                  "src/repro/kernels/cascade_probe.py:49")}
+    gather_sources = {"bloom_probe": "src/repro_torch/csrc/bloom_probe.cu",
+                      "cascade_probe": "src/repro_torch/csrc/cascade_probe.cu"}
+    # each path's launches on the driven paths: the bloom grid's bank probe
+    # and the filters bank's probe
+    path_launches = {k: {p: grid_paths.get(p, 0) * (k == "bloom_probe")
+                         + filter_paths[k][p] for p in ("onchip", "gather")}
+                     for k in ("bloom_probe", "cascade_probe")}
     # launches on the paths that were driven: the main path's get_batch and
     # bank probe, the bloom grid's bank probe, the filter bank's probe
     launches = {k: main_launches.get(k, 0) + filter_launches.get(k, 0)
@@ -642,8 +754,7 @@ def main() -> None:
     records = []
     for name, (kern, plain, n_bytes, n_ops, n_keys) in runs.items():
         got, want = kern(), plain()
-        err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
-                  for g, w in zip(got, want))
+        err = max_err(got, want)
         check(err == 0, f"{name}: kernel != plain version at the main shapes")
         extra, note = {}, ""
         if name in gather_runs:
@@ -652,8 +763,7 @@ def main() -> None:
                                          gen.tables_dev.data_ptr(), card_bytes)
             check(why is None, f"{name}: the main shapes left the window "
                   f"path ({why})")
-            g_err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs()
-                            .max()) for g, w in zip(gather(), want))
+            g_err = max_err(gather(), want)
             check(g_err == 0, f"{name}: gather path != plain version")
             # in turns on one card: gather, window, window, gather
             g1, g_per1 = graph_ms(gather)
@@ -693,6 +803,60 @@ def main() -> None:
                     f"included; the card has {card_bytes} B) | "
                     f"window path: partition alone {part_ms:.4f} ms; per "
                     f"kernel, device us per call: {breakdown}")
+        elif name in onchip_runs:
+            gather, onchip, layer_set, words = onchip_runs[name]
+            extra, note = paths_in_turns(gather, onchip, want)
+            why = bloom_onchip.onchip_reason(layer_set, n_keys, words.numel(),
+                                             words.data_ptr())
+            ms, per = graph_ms(kern)
+            extra.update({"gather_source": gather_sources[name],
+                          "path": "onchip" if why is None else "gather",
+                          **{f"{p}_launches": c
+                             for p, c in path_launches[name].items()}})
+            note = (f" | the wrapper takes the "
+                    f"{'on-chip path' if why is None else f'gather path ({why})'}"
+                    f" | {note}")
+            if name == "bloom_probe":
+                # the grid's bank probe: 200,000 keys over table 0
+                ghi, glo = common.key_lanes(exist_b, dev)
+                g_extra, g_note = paths_in_turns(
+                    lambda: (bloom_probe_gather(bstate.tables, ghi, glo,
+                                                **bargs),),
+                    lambda: (bloom_probe_onchip(bstate.tables, ghi, glo,
+                                                **bargs),),
+                    (bloom_probe_ref(bstate.tables, ghi, glo, **bargs),))
+                extra.update({"grid_keys": len(exist_b),
+                              "grid_gather_ms": g_extra["gather_ms"],
+                              "grid_onchip_ms": g_extra["onchip_ms"]})
+                note += f" | at the grid's {len(exist_b)} keys: {g_note}"
+                # the filters bank's shape, the other that launches it
+                fwant = (bloom_probe_ref(fwords, fhi, flo, **fbargs),)
+                f_extra, f_note = paths_in_turns(
+                    lambda: (bloom_probe_gather(fwords, fhi, flo, **fbargs),),
+                    lambda: (bloom_probe_onchip(fwords, fhi, flo, **fbargs),),
+                    fwant)
+                f_run = lambda: bloom_probe(fwords, fhi, flo, **fbargs)
+                check(max_err((f_run(),), fwant) == 0,
+                      "bloom_probe != plain version at the filters shape")
+                f_ms = graph_ms(f_run)[0]
+                f_plain, _ = cuda_ms(lambda: bloom_probe_ref(
+                    fwords, fhi, flo, **fbargs), windows=1)
+                f_bound, f_by = bound(
+                    12 * fn + 4 * ((lb.m_bits + 31) // 32),
+                    OPS_KEY * fn + OPS_BLOOM_PROBE * f_bloom_probes,
+                    int32_per_s)
+                extra.update({"filters_keys": fn, "filters_ms": f_ms,
+                              "filters_gather_ms": f_extra["gather_ms"],
+                              "filters_onchip_ms": f_extra["onchip_ms"],
+                              "filters_plain_ms": f_plain,
+                              "filters_bound_ms": f_bound,
+                              "filters_bound_by": f_by,
+                              "filters_launches": filter_launches[name]})
+                note += (f" | at the filters bank's shape ({fn} queries, "
+                         f"{lb.m_bits} bits, k = {lb.k}): {f_ms:.4f} ms, "
+                         f"{filter_launches[name]} launch per probe, bound "
+                         f"{f_bound:.4f} ms ({f_by}), plain {f_plain:.3f} ms; "
+                         f"{f_note}")
         else:
             ms, per = graph_ms(kern)
         eager_ms, _ = cuda_ms(kern)
@@ -753,6 +917,78 @@ def main() -> None:
               f"{lsm_window.MIN_TABLES}, MIN_KEYS {lsm_window.MIN_KEYS} | "
               f"{card}", flush=True)
 
+    # where the on-chip path pays: both paths over the first m of the
+    # 4,000,000 queries, in turns (gather, on-chip), for grid table 0's
+    # bitmap (staged), the filters bank's Bloom and its cascade (in L2)
+    sizes = (1 << 10, 1 << 13, 1 << 15, 1 << 16, 1 << 17, 1 << 18, 1 << 19,
+             1 << 20, 1 << 21, fn)
+    inner = layers[2:]      # the cascade's layers 3.. : a span that is staged
+    inner_desc = cdesc[2:].contiguous()
+    for label, mk, layer_set, words in (
+            (f"bloom_probe over grid table 0 ({4 * ((blay.m_bits + 31) // 32)}"
+             f" B, k = {blay.k})",
+             lambda p, m: (lambda: p(bstate.tables, fhi[:m], flo[:m],
+                                     **bargs)),
+             ((blay.m_bits, blay.k, blay.seed, blay.offset),), bstate.tables),
+            (f"bloom_probe over the filters bank's Bloom "
+             f"({4 * ((lb.m_bits + 31) // 32)} B, k = {lb.k})",
+             lambda p, m: (lambda: p(fwords, fhi[:m], flo[:m], **fbargs)),
+             ((lb.m_bits, lb.k, lb.seed, lb.offset),), fwords),
+            (f"cascade_probe over the filters bank's {len(layers)} layers",
+             lambda p, m: (lambda: p(fwords, fhi[:m], flo[:m], cdesc,
+                                     layers=layers)),
+             layers, fwords),
+            (f"cascade_probe over its layers 3-{len(layers)} "
+             f"({4 * (bloom_onchip.span(inner)[1] - bloom_onchip.span(inner)[0])}"
+             f" B)",
+             lambda p, m: (lambda: p(fwords, fhi[:m], flo[:m], inner_desc,
+                                     layers=inner)),
+             inner, fwords)):
+        gather_fn, onchip_fn = ((bloom_probe_gather, bloom_probe_onchip)
+                                if "bloom" in label else
+                                (cascade_probe_gather, cascade_probe_onchip))
+        points = [(m, graph_ms(mk(gather_fn, m))[0],
+                   graph_ms(mk(onchip_fn, m))[0]) for m in sizes]
+        faster = [m for m, g, o in points if o < g]
+        rule = [m for m, _, _ in points if bloom_onchip.onchip_reason(
+            layer_set, m, words.numel(), words.data_ptr()) is None]
+        print(f"time on-chip crossover, {label}, device ms (gather, on-chip) "
+              f"over m keys: " + ", ".join(f"{m} {g:.4f} {o:.4f}"
+                                           for m, g, o in points)
+              + f" | the on-chip path is faster at {faster}; the rule "
+              f"(bloom_onchip.onchip_reason) takes it at {rule} | {card}",
+              flush=True)
+
+    # what bounds a Bloom probe at large batches: the on-chip kernel over a
+    # synthetic bitmap of grid table 0's size at 2^20 keys: k = 1 (one probe
+    # a key), k = 8 with every bit set (8 probes a key, no lane waits on
+    # another) and k = 8 half set (a key stops at its first zero bit; its
+    # warp runs until its slowest lane stops)
+    n_diag, words_d = min(1 << 20, fn), (blay.m_bits + 31) // 32
+    diag, needed = {}, 0.0
+    for label, k_d, full in (("k=1", 1, False), ("k=8 full", 8, True),
+                             ("k=8 half full", 8, False)):
+        tables_d, (off_d,) = selfcheck.bitmap_bank((words_d,), seed=5, ors=1)
+        if full:
+            tables_d[:] = 0xFFFFFFFF
+        bank_d = common.to_device(tables_d, dev)
+        args_d = dict(m_bits=32 * words_d, k=k_d, seed=2**31 + 77,
+                      offset=off_d)
+        diag[label] = graph_ms(lambda: bloom_probe_onchip(
+            bank_d, fhi[:n_diag], flo[:n_diag], **args_d))[0]
+        if label == "k=8 half full":      # probes these keys need
+            needed = sum(int(bloom_probe_ref(
+                bank_d, fhi[:n_diag], flo[:n_diag],
+                **dict(args_d, k=j)).sum()) for j in range(k_d)) / n_diag
+    per_probe = (diag["k=8 full"] - diag["k=1"]) / 7
+    run = 1 + (diag["k=8 half full"] - diag["k=1"]) / per_probe
+    print(f"time what bounds bloom_probe at {n_diag} keys (on-chip path, "
+          f"{4 * words_d} B bitmap), device ms: " + ", ".join(
+              f"{k} {v:.4f}" for k, v in diag.items())
+          + f" | {per_probe * 1e3:.2f} us per probe of all keys; half full "
+          f"costs {run:.2f} probes a key where the keys need {needed:.3f} "
+          f"({run / needed:.2f}x) | {card}", flush=True)
+
     def host_ms(fn, reps: int = 3) -> float:
         fn()                                             # warm
         torch.cuda.synchronize()
@@ -785,11 +1021,10 @@ def main() -> None:
     # where a FilterService.probe goes: key split + upload, the five
     # launches on device lanes (outputs left on the card), the whole call
     # (+ the download of member and probes, and the stats)
-    lb = flays[0]
-    bank_ms = graph_ms(lambda: bloom_probe(
-        fwords, fhi, flo, m_bits=lb.m_bits, k=lb.k, seed=lb.seed,
-        offset=lb.offset))[0]
-    bank_ms += sum(r["ms"] for r in records if r["name"] in bank_kernels)
+    bank_ms = next(r["filters_ms"] for r in records
+                   if r["name"] == "bloom_probe") + sum(
+        r["ms"] for r in records
+        if r["name"] in bank_kernels and r["name"] != "bloom_probe")
     f_lanes_ms = host_ms(lambda: common.key_lanes(queries, dev))
     f_launch_ms = host_ms(lambda: bank_probe(fwords, fhi, flo, layouts=flays,
                                              descs=fstate.descs))

@@ -50,6 +50,7 @@
 #include <cstdint>
 
 #include "probe_common.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -365,52 +366,6 @@ window_scatter_kernel(const int32_t* __restrict__ desc, int32_t n_tables,
   }
 }
 
-// -- TMA bulk copy and mbarrier (PTX) -------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_addr(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
-}
-
-// global -> shared, `bytes` a multiple of 16 and both addresses 16-aligned
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
 // The probe pass's view of one work item, in shared memory per stage.
 struct Item {
   int32_t table;     // -1: no more items
@@ -443,9 +398,9 @@ __device__ void issue_item(uint32_t item, int32_t n_items, int32_t parts,
     const uint32_t seg = f[kSegLen];
     const uint32_t bytes = 12u * seg;
     // the buffer was last read through the generic proxy
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    mbar_expect_tx(bar, bytes);
-    bulk_copy(buf, words + f[kOffset] + it->window * seg, bytes, bar);
+    tma::fence_proxy_async();
+    tma::mbar_expect_tx(bar, bytes);
+    tma::bulk_copy(buf, words + f[kOffset] + it->window * seg, bytes, bar);
   }
 }
 
@@ -467,9 +422,9 @@ window_probe_kernel(const uint32_t* __restrict__ words,
   __shared__ Item items[2];
   load_tables(st, desc, n_tables);
   if (threadIdx.x == 0) {
-    mbar_init(&bar[0], 1);
-    mbar_init(&bar[1], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    tma::mbar_init(&bar[0], 1);
+    tma::mbar_init(&bar[1], 1);
+    tma::fence_barrier_init();
     issue_item(atomicAdd(next_item, 1u), n_items, parts, st, bstart, words,
                windows, &bar[0], &items[0]);
   }
@@ -485,7 +440,7 @@ window_probe_kernel(const uint32_t* __restrict__ words,
                  windows + (s ^ 1) * win_words, &bar[s ^ 1], &items[s ^ 1]);
     }
     if (it.begin < it.end) {
-      mbar_wait(&bar[s], (phase >> s) & 1u);
+      tma::mbar_wait(&bar[s], (phase >> s) & 1u);
       phase ^= 1u << s;
       const uint32_t* f = st.d + it.table * kDescK;
       const uint32_t seed = f[kSeed], seg = f[kSegLen];

@@ -1,5 +1,6 @@
 // Device functions shared by the probe kernels (lsm_probe.cu, lsm_window.cu,
-// bloom_probe.cu, xor_probe.cu, chained_probe.cu, cascade_probe.cu).
+// bloom_probe.cu, bloom_onchip.cu, xor_probe.cu, chained_probe.cu,
+// cascade_probe.cu).
 //
 // Each mirrors, bit for bit, a host function of the port and of the JAX
 // package:
@@ -48,19 +49,47 @@ __device__ __forceinline__ uint32_t word(const uint32_t* __restrict__ words,
   return __ldg(words + i);
 }
 
+// Where a Bloom test reads its words: the bank in global memory through
+// the read-only path, or a copy staged in this block's shared memory.
+// Each is indexed by the word's position in its source.
+struct GlobalWords {
+  const uint32_t* p;
+  __device__ __forceinline__ uint32_t operator[](uint32_t i) const {
+    return __ldg(p + i);
+  }
+};
+
+struct SharedWords {
+  const uint32_t* p;
+  __device__ __forceinline__ uint32_t operator[](uint32_t i) const {
+    return p[i];
+  }
+};
+
 // k-hash Bloom test: bit fastrange(hash(seed*1000+i), m_bits) for every i;
-// the first zero bit decides a miss, so later hashes are skipped.
-__device__ __forceinline__ bool bloom_hit(const uint32_t* __restrict__ words,
-                                          uint32_t hi, uint32_t lo,
-                                          uint32_t m_bits, uint32_t k,
-                                          uint32_t seed, uint32_t offset) {
+// the first zero bit decides a miss, so later hashes are skipped. One
+// function for every word source, so the hash, the fastrange and the exit
+// are the same wherever the bitmap lives.
+template <class Words>
+__device__ __forceinline__ bool bloom_hit(const Words& words, uint32_t hi,
+                                          uint32_t lo, uint32_t m_bits,
+                                          uint32_t k, uint32_t seed,
+                                          uint32_t offset) {
   for (uint32_t i = 0; i < k; ++i) {
     uint32_t idx = fastrange(hash_u32(hi, lo, seed * 1000u + i), m_bits);
-    if (((word(words, offset + (idx >> 5)) >> (idx & 31u)) & 1u) == 0u) {
+    if (((words[offset + (idx >> 5)] >> (idx & 31u)) & 1u) == 0u) {
       return false;
     }
   }
   return true;
+}
+
+// The Bloom test over the bank in global memory.
+__device__ __forceinline__ bool bloom_hit(const uint32_t* __restrict__ words,
+                                          uint32_t hi, uint32_t lo,
+                                          uint32_t m_bits, uint32_t k,
+                                          uint32_t seed, uint32_t offset) {
+  return bloom_hit(GlobalWords{words}, hi, lo, m_bits, k, seed, offset);
 }
 
 // Fuse layout: the first of the key's three consecutive segments,

@@ -47,6 +47,10 @@ SIGNATURES = {
         [P, P, I32, I32, U32, P, P, P, P, P, P, P, I64, P],
     ("bloom_probe", "bloom_probe_launch"):
         [P, P, P, P, U32, U32, U32, U32, I64, P],
+    ("bloom_onchip", "bloom_onchip_launch"):
+        [P, U32, U32, I32, U32, U32, U32, U32, P, P, P, I64, I64, P],
+    ("bloom_onchip", "cascade_onchip_launch"):
+        [P, U32, U32, I32, P, I32, P, P, P, P, I64, I64, P],
     ("xor_probe", "bloomier_probe_launch"):
         [P, P, P, P, PU32, I64, P],
     ("chained_probe", "chained_probe_launch"):

@@ -61,6 +61,22 @@ def check_probe_args(words: torch.Tensor, *lanes: torch.Tensor) -> None:
         raise ValueError("key lanes must share one shape")
 
 
+def check_bloom_layers(words: torch.Tensor, layers: tuple) -> None:
+    """The Bloom wrappers' shared check of their (m_bits, k, seed,
+    offset) layers: at least one, 0 < m_bits < 2**31, k >= 0, each bitmap
+    inside the bank."""
+    if len(layers) == 0:
+        raise ValueError("a cascade needs at least one layer")
+    for m_bits, k, _, offset in layers:
+        if not 0 < m_bits < 2 ** 31:
+            raise ValueError(f"m_bits must be in (0, 2**31), got {m_bits}")
+        if k < 0:
+            raise ValueError(f"k must be >= 0, got {k}")
+        if offset < 0 or offset + (m_bits + 31) // 32 > words.numel():
+            raise ValueError(f"layer at word {offset} ({m_bits} bits) lies "
+                             f"outside the {words.numel()}-word bank")
+
+
 # ---------------------------------------------------------------------------
 # plain per-key lookups over a packed int32 bank (int64 lanes inside)
 # ---------------------------------------------------------------------------

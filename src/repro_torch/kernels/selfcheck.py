@@ -30,9 +30,12 @@ from repro_torch.core.lsm import ChainedTableFilter
 from repro_torch.core.othello import DynamicExactFilter
 from repro_torch.core.tables import (BloomTable, LsmChainLayout, OthelloTable,
                                      concat_tables)
-from . import common, lsm_window
-from .bloom_probe import bloom_probe, bloom_probe_ref
-from .cascade_probe import cascade_descriptors, cascade_probe, cascade_probe_ref
+from . import bloom_onchip, common, lsm_window
+from .bloom_probe import (bloom_probe, bloom_probe_gather, bloom_probe_onchip,
+                          bloom_probe_ref)
+from .cascade_probe import (cascade_descriptors, cascade_probe,
+                            cascade_probe_gather, cascade_probe_onchip,
+                            cascade_probe_ref)
 from .chained_probe import chained_probe, chained_probe_ref
 from .lsm_probe import (chain_descriptors, lsm_chain_probe,
                         lsm_chain_probe_ref, lsm_probe, lsm_probe_gather,
@@ -41,6 +44,7 @@ from .ops import chained_and_params
 from .xor_probe import exact_probe, exact_probe_ref, xor_probe, xor_probe_ref
 
 KINDS = ("fuse", "uniform", "nos1", "bloom", "always")
+FILTER_SEED = 2**31 + 12_345        # every filter seed >= 2**31
 
 
 def _filter(kind: str, t: int, own: np.ndarray, rest: np.ndarray):
@@ -156,19 +160,106 @@ def check_partition(kinds, device, per: int = 1000, seed: int = 0,
     return max(_differ(g, w) for g, w in zip(got, want))
 
 
-def check_bloom_probe(device, per: int = 1000, seed: int = 0) -> int:
+# bloom_probe's and cascade_probe's entry points: the wrapper (on-chip
+# path where bloom_onchip.onchip_reason sends the probe, else gather) or
+# one path
+BLOOM_PATHS = {None: bloom_probe, "onchip": bloom_probe_onchip,
+               "gather": bloom_probe_gather}
+CASCADE_PATHS = {None: cascade_probe, "onchip": cascade_probe_onchip,
+                 "gather": cascade_probe_gather}
+
+
+def check_bloom_probe(device, per: int = 1000, seed: int = 0,
+                      path: str | None = None) -> int:
+    """A host-built Bloom table (seed >= 2**31) behind a fuse chain, so its
+    offset is > 0."""
     tables, chains, q, _ = edge_bank(("fuse", "bloom"), per, seed)
     m_bits, k, bseed, offset = chains[1][1]
     words = common.to_device(tables, device)
     hi, lo = common.key_lanes(q, device)
     args = dict(m_bits=m_bits, k=k, seed=bseed, offset=offset)
-    return _differ(bloom_probe(words, hi, lo, **args),
+    return _differ(BLOOM_PATHS[path](words, hi, lo, **args),
                    bloom_probe_ref(words, hi, lo, **args))
+
+
+def bitmap_bank(sizes, seed: int, ors: int, lead: int = 128):
+    """(bank uint32, offsets): random bitmaps of ``sizes`` words, each at
+    a 128-word boundary after ``lead`` words of another table, about
+    1 − 2**−ors of their bits set (an OR of ``ors`` random words)."""
+    offsets, at = [], lead
+    for n_words in sizes:
+        offsets.append(at)
+        at += -(-n_words // 128) * 128
+    rng = np.random.default_rng(seed)
+    bank = np.zeros(at, np.uint32)
+    for _ in range(ors):
+        bank |= rng.integers(0, 2**32, at, dtype=np.uint32)
+    return bank, offsets
+
+
+def _keys(n: int, seed: int) -> np.ndarray:
+    extremes = np.array([0, 2**64 - 1, 2**32 - 1, 2**32], np.uint64)
+    q = np.concatenate([extremes, H.random_keys(max(n - 4, 0), seed=seed)])
+    return q[:n]
+
+
+def check_bloom_bitmap(device, *, words: int, k: int = 8,
+                       seed: int = FILTER_SEED, n: int = 5000,
+                       path: str | None = "onchip") -> int:
+    """A random bitmap of ``words`` words (3/4 of its bits set; m_bits 5
+    short of whole words) probed by ``n`` keys against the plain version."""
+    tables, (offset,) = bitmap_bank((words,), seed=seed % 997, ors=2)
+    args = dict(m_bits=32 * words - 5, k=k, seed=seed, offset=offset)
+    bank = common.to_device(tables, device)
+    hi, lo = common.key_lanes(_keys(n, seed % 991), device)
+    return _differ(BLOOM_PATHS[path](bank, hi, lo, **args),
+                   bloom_probe_ref(bank, hi, lo, **args))
+
+
+def synthetic_cascade(sizes, seed: int = FILTER_SEED) -> tuple:
+    """(bank uint32, layers) of random layers of ``sizes`` words (15/16 of
+    their bits set, so keys reach every depth): k 4 on the first, 2 on the
+    others, seeds >= 2**31."""
+    tables, offsets = bitmap_bank(sizes, seed=seed % 997, ors=4)
+    layers = tuple((32 * w - 3, 4 if i == 0 else 2, seed + 977 * i, o)
+                   for i, (w, o) in enumerate(zip(sizes, offsets)))
+    return tables, layers
+
+
+def check_cascade_bitmaps(device, *, sizes, n: int = 5000,
+                          path: str | None = "onchip") -> int:
+    tables, layers = synthetic_cascade(sizes)
+    bank = common.to_device(tables, device)
+    desc = torch.from_numpy(cascade_descriptors(layers)).to(device)
+    hi, lo = common.key_lanes(_keys(n, 3), device)
+    got = CASCADE_PATHS[path](bank, hi, lo, desc, layers=layers)
+    want = cascade_probe_ref(bank, hi, lo, layers=layers)
+    return max(_differ(g, w) for g, w in zip(got, want))
+
+
+# the on-chip path's edges (bloom_onchip.plan): a bitmap span one
+# 128-word chunk under and over what one block stages, k, n against the
+# block and the grid stride, and seeds
+ROOM = bloom_onchip.block_words(1)
+BIG_N = 1_500_003         # several keys per thread of a full grid
+BLOOM_BITMAP_CASES = (
+    ("span one chunk under the one-block limit", dict(words=ROOM - 128)),
+    ("span one chunk over the one-block limit", dict(words=ROOM + 128)),
+    ("filters-bank Bloom size, 1.2 MB", dict(words=300_000, k=7)),
+    ("k=0", dict(words=4000, k=0)),
+    ("k=1", dict(words=4000, k=1)),
+    ("n=1", dict(words=4000, n=1)),
+    ("n=1061, not a multiple of the block", dict(words=4000, n=1061)),
+    ("n=1500003, span staged", dict(words=ROOM - 128, n=BIG_N)),
+    ("n=1500003, span in L2", dict(words=ROOM + 128, n=BIG_N)),
+    ("seed 2**32-1", dict(words=ROOM, seed=2**32 - 1)),
+)
+# a cascade whose span exceeds one block: 18 halving layers from 480 KB
+WIDE_CASCADE = tuple(max(128, 120_000 >> i) for i in range(18))
 
 
 # -- the filter-serving path: xor, exact, chained and cascade probes ----------
 
-FILTER_SEED = 2**31 + 12_345        # every filter seed >= 2**31
 CASCADE_DEPTHS = (1, 2, 5, 18)      # 18: the full-scale cascade's depth
 DEEP_CASCADE = 1100                 # more layers than the kernel stages
 
@@ -192,7 +283,8 @@ def filter_case(kernel: str, arg, per: int = 1000, seed: int = 0):
     - ``exact_probe``: strategy 'a' or 'b' over ``per`` + 2·``per`` keys;
     - ``chained_probe``: 'stage 1' (λ = 8), 'no stage 1' (λ = 1.5) or
       'eps>0' (λ = 8, ε = 0.01);
-    - ``cascade_probe``: L, a ``nested_cascade`` of that depth.
+    - ``cascade_probe``: L, a ``nested_cascade`` of that depth;
+    - ``bloom_probe``: the false-positive rate of a Bloom filter.
 
     The keys hold half the positives, ``per`` negatives (some pass a
     stage 1 and fail stage 2) and the lane extremes."""
@@ -211,6 +303,8 @@ def filter_case(kernel: str, arg, per: int = 1000, seed: int = 0):
                                    eps=0.01 if arg == "eps>0" else 0.0)
     elif kernel == "cascade_probe":
         f = nested_cascade(pos, arg, s)
+    elif kernel == "bloom_probe":
+        f = BloomFilter.build(pos, arg, seed=s + 2)
     else:
         raise ValueError(f"no filter case for {kernel!r}")
     front = BloomFilter.build(keys[-8:], 0.1, seed=s + 1)
@@ -220,10 +314,11 @@ def filter_case(kernel: str, arg, per: int = 1000, seed: int = 0):
     return tables, lay, q, f
 
 
-def filter_calls(kernel: str, lay, words: torch.Tensor):
+def filter_calls(kernel: str, lay, words: torch.Tensor,
+                 path: str | None = None):
     """(kernel, plain version) of ``kernel`` on the filter at ``lay`` in
     the bank ``words``: functions of (hi, lo) returning a tuple of int32
-    outputs."""
+    outputs. ``path``: the cascade's entry point (``CASCADE_PATHS``)."""
     if kernel == "xor_probe":
         a = dict(mode=lay.mode, seed=lay.seed, seg_len=lay.seg_len,
                  n_seg=lay.n_seg, alpha=lay.alpha, fp_seed=lay.fp_seed,
@@ -242,18 +337,19 @@ def filter_calls(kernel: str, lay, words: torch.Tensor):
                 lambda hi, lo: chained_probe_ref(words, hi, lo, **a))
     layers = lay.probe_params()
     desc = torch.from_numpy(cascade_descriptors(layers)).to(words.device)
-    return (lambda hi, lo: cascade_probe(words, hi, lo, desc, layers=layers),
+    probe = CASCADE_PATHS[path]
+    return (lambda hi, lo: probe(words, hi, lo, desc, layers=layers),
             lambda hi, lo: cascade_probe_ref(words, hi, lo, layers=layers))
 
 
 def check_filter_kernel(kernel: str, arg, device, per: int = 1000,
-                        seed: int = 0) -> int:
+                        seed: int = 0, path: str | None = None) -> int:
     """Largest absolute error of a filter-serving kernel against its
     plain version on ``filter_case(kernel, arg)`` (0 = agree)."""
     tables, lay, q, _ = filter_case(kernel, arg, per, seed)
     words = common.to_device(tables, device)
     hi, lo = common.key_lanes(q, device)
-    kern, plain = filter_calls(kernel, lay, words)
+    kern, plain = filter_calls(kernel, lay, words, path)
     return max(_differ(g, w) for g, w in zip(kern(hi, lo), plain(hi, lo)))
 
 
@@ -285,6 +381,20 @@ def edge_cases() -> list[tuple[str, str, object]]:
               for k in ("fuse", "uniform", "nos1")]
     cases += [("lsm_chain_probe", "fuse, n=1", dict(kind="fuse", per=2, n=1))]
     cases += [("bloom_probe", "seed>=2**31 offset>0", None)]
+    # both paths of bloom_probe and cascade_probe at the on-chip edges
+    for path in ("onchip", "gather"):
+        cases += [("bloom_probe", f"{path} seed>=2**31 offset>0",
+                   dict(path=path))]
+        cases += [("bloom_probe", f"{path} {name}", dict(args, path=path))
+                  for name, args in BLOOM_BITMAP_CASES]
+        cases += [("cascade_probe", f"{path} L={n}", dict(depth=n, path=path))
+                  for n in (1, 18)]
+        cases += [("cascade_probe", f"{path} L=18 span over one block",
+                   dict(sizes=WIDE_CASCADE, path=path)),
+                  ("cascade_probe", f"{path} L=18 staged, n={BIG_N}",
+                   dict(sizes=(2000,) * 18, n=BIG_N, path=path)),
+                  ("cascade_probe", f"{path} L={bloom_onchip.MAX_LAYERS}",
+                   dict(sizes=(128,) * bloom_onchip.MAX_LAYERS, path=path))]
     cases += filter_edge_cases()
     cases += [("cascade_probe", f"L={DEEP_CASCADE} descriptor in global "
                "memory", DEEP_CASCADE)]
@@ -298,7 +408,14 @@ def check_case(kernel: str, arg, device, per: int = 1000) -> int:
     if kernel == "lsm_chain_probe":
         return check_lsm_chain_probe(device=device, **{"per": per, **arg})
     if kernel == "bloom_probe":
-        return check_bloom_probe(device, per)
+        if arg is None or "words" not in arg:
+            return check_bloom_probe(device, per, **(arg or {}))
+        return check_bloom_bitmap(device, **arg)
+    if kernel == "cascade_probe" and isinstance(arg, dict):
+        if "sizes" in arg:
+            return check_cascade_bitmaps(device, **arg)
+        return check_filter_kernel(kernel, arg["depth"], device, per,
+                                   path=arg["path"])
     return check_filter_kernel(kernel, arg, device, per)
 
 

@@ -33,6 +33,9 @@ from repro_torch.core.chained import (ChainedFilterAnd,  # noqa: E402
                                       ChainedFilterCascade)
 from repro_torch.core.tables import layout_from_dict  # noqa: E402
 from repro_torch.kernels import ops, ref, selfcheck  # noqa: E402
+from repro_torch.kernels.bloom_probe import (bloom_probe,  # noqa: E402
+                                             bloom_probe_gather,
+                                             bloom_probe_onchip)
 from repro_torch.kernels.cascade_probe import (cascade_descriptors,  # noqa: E402
                                                cascade_probe)
 from repro_torch.kernels.chained_probe import chained_probe  # noqa: E402
@@ -255,3 +258,13 @@ def test_wrappers_validate_their_arguments():
         cascade_probe(words, z, z, desc[:0], layers=())
     with pytest.raises(ValueError):                 # desc of other layers
         cascade_probe(words, z, z, desc, layers=((64, 3, 1, 0), (64, 2, 1, 0)))
+    # bloom_probe: the cascade's layer check (k >= 0, inside the bank)
+    for probe in (bloom_probe, bloom_probe_gather, bloom_probe_onchip):
+        with pytest.raises(ValueError):             # k < 0
+            probe(words, z, z, m_bits=64, k=-1, seed=1, offset=0)
+        with pytest.raises(ValueError):             # past the bank
+            probe(words, z, z, m_bits=64, k=3, seed=1,
+                  offset=words.numel() - 1)
+        with pytest.raises(ValueError):
+            probe(words, z, z, m_bits=0, k=3, seed=1, offset=0)
+    assert bloom_probe(words, z, z, m_bits=64, k=0, seed=1).all()

@@ -14,10 +14,13 @@ from repro_torch.core.bloom import BloomFilter  # noqa: E402
 from repro_torch.core.bloomier import ExactBloomier, XorFilter  # noqa: E402
 from repro_torch.core.chained import (ChainedFilterAnd,  # noqa: E402
                                       ChainedFilterCascade)
-from repro_torch.kernels import common, lsm_window, ops, selfcheck  # noqa: E402
-from repro_torch.kernels.bloom_probe import bloom_probe  # noqa: E402
+from repro_torch.kernels import (bloom_onchip, common, lsm_window,  # noqa: E402
+                                 ops, selfcheck)
+from repro_torch.kernels.bloom_probe import (bloom_probe,  # noqa: E402
+                                             bloom_probe_onchip)
 from repro_torch.kernels.cascade_probe import (cascade_descriptors,  # noqa: E402
-                                               cascade_probe)
+                                               cascade_probe,
+                                               cascade_probe_onchip)
 from repro_torch.kernels.chained_probe import chained_probe  # noqa: E402
 from repro_torch.kernels.lsm_probe import (chain_descriptors,  # noqa: E402
                                            lsm_chain_probe, lsm_probe)
@@ -88,6 +91,57 @@ def test_path_counters_follow_the_eligibility_rule(cuda):
         lsm_chain_probe(words, hi, lo, chain=chains[0])
         assert lsm_chain_probe.launches == before + 1
     assert taken == {True, False}        # both paths were taken
+    torch.cuda.synchronize()
+
+
+def test_bloom_path_counters_follow_the_onchip_rule(cuda):
+    B = bloom_onchip
+    room = selfcheck.ROOM
+    taken = set()
+    # (bitmap words, keys): staged under, at and past the window of keys
+    # the rule takes; a single layer in L2
+    for words, n in ((4000, 1), (4000, B.MIN_LOCAL_KEYS - 1),
+                     (4000, B.MIN_LOCAL_KEYS), (4000, B.MAX_LOCAL_KEYS),
+                     (room + 128, B.MIN_LOCAL_KEYS)):
+        tables, (offset,) = selfcheck.bitmap_bank((words,), seed=1, ors=2)
+        bank = common.to_device(tables, cuda)
+        hi, lo = common.key_lanes(H.random_keys(n, seed=5), cuda)
+        layer = (32 * words - 5, 7, 2**31 + 1, offset)
+        onchip = B.onchip_reason((layer,), n, bank.numel(),
+                                 bank.data_ptr()) is None
+        taken.add(onchip)
+        before = (bloom_probe.onchip_launches, bloom_probe.gather_launches)
+        bloom_probe(bank, hi, lo, m_bits=layer[0], k=layer[1], seed=layer[2],
+                    offset=layer[3])
+        assert (bloom_probe.onchip_launches - before[0],
+                bloom_probe.gather_launches - before[1]) == \
+            ((1, 0) if onchip else (0, 1)), (words, n)
+    assert taken == {True, False}        # both paths were taken
+    # the cascade: a staged span at two batch sizes, a span in L2, and more
+    # layers than the on-chip kernel stages
+    small = selfcheck.synthetic_cascade((2000,) * 18)
+    wide = selfcheck.synthetic_cascade(selfcheck.WIDE_CASCADE)
+    deep = selfcheck.synthetic_cascade((128,) * (B.MAX_LAYERS + 1))
+    cases = [(small, 5000), (small, B.MIN_LOCAL_KEYS), (wide, 1000),
+             (deep, B.MIN_LOCAL_KEYS)]
+    taken = set()
+    for (tables, layers), n in cases:
+        bank = common.to_device(tables, cuda)
+        desc = torch.from_numpy(cascade_descriptors(layers)).to(cuda)
+        hi, lo = common.key_lanes(H.random_keys(n, seed=6), cuda)
+        onchip = B.onchip_reason(layers, n, bank.numel(),
+                                 bank.data_ptr()) is None
+        taken.add(onchip)
+        before = (cascade_probe.onchip_launches,
+                  cascade_probe.gather_launches)
+        cascade_probe(bank, hi, lo, desc, layers=layers)
+        assert (cascade_probe.onchip_launches - before[0],
+                cascade_probe.gather_launches - before[1]) == \
+            ((1, 0) if onchip else (0, 1)), (len(layers), n)
+        if len(layers) > B.MAX_LAYERS:
+            with pytest.raises(ValueError):
+                cascade_probe_onchip(bank, hi, lo, desc, layers=layers)
+    assert taken == {True, False}
     torch.cuda.synchronize()
 
 
@@ -180,6 +234,13 @@ def test_filter_kernels_reject_what_they_cannot_take(cuda):
         cascade_probe(words, hi, hi, desc.cpu(), layers=layers)
     with pytest.raises(ValueError):
         cascade_probe(words, hi, hi, desc, layers=((2**31, 3, 1, 0),))
+    for probe in (bloom_probe, bloom_probe_onchip):
+        with pytest.raises(ValueError):    # k < 0
+            probe(words, hi, hi, m_bits=64, k=-1, seed=1, offset=0)
+        with pytest.raises(ValueError):    # the bitmap runs past the bank
+            probe(words, hi, hi, m_bits=64, k=3, seed=1,
+                  offset=words.numel() - 1)
+
     empty = torch.zeros(0, dtype=torch.int32, device=cuda)
     assert xor_probe(words, empty, empty, alpha=3, fp_seed=1, **x).numel() == 0
     for out in (chained_probe(words, empty, empty,
