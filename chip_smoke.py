@@ -14,9 +14,16 @@ Phases, one line each; any failure exits non-zero and prints no result:
              {1, 2, 5, 18, 1100}; seeds >= 2**31; both paths of bloom_probe
              and cascade_probe: a bitmap one chunk under and over what one
              block stages, 1.2 MB, k = 0 and 1, n = 1, 1061 and 1,500,003,
-             seed 2**32-1, cascades of L = 1, 18 and 256 staged or in L2)
-             and the window path's partition scratch against its torch
-             twin: exact equality
+             seed 2**32-1, cascades of L = 1, 18 and 256 staged or in L2;
+             both paths of xor_probe, exact_probe and chained_probe: alpha
+             in {1, 3, 8, 9, 16} by both (17, 32: no plane, gather only),
+             uniform and fuse, strategy a/b, with and without stage 1;
+             planes at and one segment over what one block holds, 2-, 4-,
+             8- and 16-bit fields, two planes in one block, the filters
+             cell's exact table at n = 1, 1061 and 1,500,003, seg_len 8,
+             seed 2**32-1; the filters cell's Xor and ChainedFilterAnd by
+             the gather kernels) and the window path's
+             partition scratch against its torch twin: exact equality
 4. main      the paper's §5.4 point query at full width: a chained
              ``LsmStore`` of 16 flushes x 500,000 keys (8M keys, a ~41 MB
              bank), ``get_batch`` of 1,048,576 existing and 1,048,576
@@ -38,8 +45,9 @@ Phases, one line each; any failure exits non-zero and prints no result:
              ChainedFilterCascade) packed into one ~28.5 MB bank, and
              ``FilterService.probe`` of 4,000,000 queries (one launch each
              of bloom_probe, xor_probe, exact_probe, chained_probe and
-             cascade_probe, bloom_probe's and cascade_probe's paths as
-             ``onchip_reason`` picks them); member and probes equal to the
+             cascade_probe, each kernel's path as its ``onchip_reason``
+             picks it: bloom_onchip for Bloom and cascade, bloomier_onchip
+             for Xor, exact and chained); member and probes equal to the
              host filters on
              every query, the exact filters exact over their universes,
              bits per key against the lower bound, and ``refresh_tables``
@@ -58,8 +66,17 @@ Phases, one line each; any failure exits non-zero and prints no result:
              on-chip, gather), both paths over 2^10 to 4,000,000 keys for
              four bitmaps (where the on-chip path pays), and what bounds a
              Bloom probe (k = 1, and k = 8 over a full and a half-full
-             bitmap); host-clock times of get_batch and of both
-             FilterService banks' probes
+             bitmap); the gather kernels' rate against the table's
+             footprint (xor_probe's gather kernel over synthetic fuse
+             tables of 96 B to 67 MB at 4,000,000 keys), chained_probe over
+             three pass mixes, and the G gathers/s each gather row
+             achieves; exact_probe by both paths in turns (gather, on-chip,
+             on-chip, gather) at the filters cell's shape, the plane bytes
+             of each Bloomier filter of the bank, why a path was not
+             taken and what packing the bank's planes costs, and both paths of the three over 2^10 to 4,000,000
+             keys (the cell's exact table, an Xor plane and two chained
+             planes that fit one block); host-clock times of get_batch and
+             of both FilterService banks' probes
 
 Then one JSON line of kernel records, the card line and the result line.
 Launch counts are set to 0 just before each path is driven and read just
@@ -70,6 +87,7 @@ Usage: python3 chip_smoke.py
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -159,8 +177,9 @@ def main() -> None:
         from repro_torch.core.chained import (ChainedFilterAnd,
                                               ChainedFilterCascade)
         from repro_torch.core.lsm import LsmLevelChained
-        from repro_torch.kernels import (_build, bloom_onchip, common,
-                                         lsm_window, ops, ref, selfcheck)
+        from repro_torch.kernels import (_build, bloom_onchip,
+                                         bloomier_onchip, common, lsm_window,
+                                         ops, ref, selfcheck)
         from repro_torch.kernels.bloom_probe import (bloom_probe,
                                                      bloom_probe_gather,
                                                      bloom_probe_onchip,
@@ -169,15 +188,19 @@ def main() -> None:
                                                        cascade_probe_gather,
                                                        cascade_probe_onchip,
                                                        cascade_probe_ref)
-        from repro_torch.kernels.chained_probe import (chained_probe,
-                                                       chained_probe_ref)
+        from repro_torch.kernels.chained_probe import (
+            chained_probe, chained_probe_gather, chained_probe_onchip,
+            chained_probe_ref)
         from repro_torch.kernels.lsm_probe import (
             lsm_chain_probe, lsm_chain_probe_ref, lsm_probe, lsm_probe_gather,
             lsm_probe_ref, lsm_probe_window)
-        from repro_torch.kernels.xor_probe import (exact_probe,
-                                                   exact_probe_ref, xor_probe,
-                                                   xor_probe_ref)
-        from repro_torch.serving.filter_service import FilterService, bank_probe
+        from repro_torch.kernels.xor_probe import (
+            exact_probe, exact_probe_gather, exact_probe_onchip,
+            exact_probe_ref, xor_probe, xor_probe_gather, xor_probe_onchip,
+            xor_probe_ref)
+        from repro_torch.serving.filter_service import (FilterService,
+                                                        bank_probe,
+                                                        layout_planes)
         from repro_torch.storage import (LatencyAccountant, LsmStore,
                                          zipfian_read_heavy)
     except ImportError as exc:
@@ -188,12 +211,14 @@ def main() -> None:
                "cascade_probe": cascade_probe}
     bank_kernels = ("bloom_probe", "xor_probe", "exact_probe",
                     "chained_probe", "cascade_probe")
+    bloomier_kernels = ("xor_probe", "exact_probe", "chained_probe")
 
     def reset_counts():
         for fn in kernels.values():
             fn.launches = 0
         lsm_probe.window_launches = lsm_probe.gather_launches = 0
-        for fn in (bloom_probe, cascade_probe):
+        for fn in (bloom_probe, cascade_probe, xor_probe, exact_probe,
+                   chained_probe):
             fn.onchip_launches = fn.gather_launches = 0
 
     def path_counts() -> dict:
@@ -201,8 +226,19 @@ def main() -> None:
                 "gather": lsm_probe.gather_launches}
 
     def bloom_paths(fn) -> dict:
-        """Launches of bloom_probe's or cascade_probe's two paths."""
+        """Launches of the two paths of bloom_probe, cascade_probe,
+        xor_probe, exact_probe or chained_probe."""
         return {"onchip": fn.onchip_launches, "gather": fn.gather_launches}
+
+    def geometries(*stages) -> tuple:
+        """bloomier_onchip Geometry of (table layout, alpha) stages."""
+        return tuple(bloomier_onchip.Geometry(t.mode, t.seg_len, t.n_seg, a)
+                     for t, a in stages)
+
+    def bloomier_rule(geos, n_keys: int) -> dict:
+        """The path bloomier_onchip.onchip_reason picks for one probe."""
+        onchip = int(bloomier_onchip.onchip_reason(geos, n_keys) is None)
+        return {"onchip": onchip, "gather": 1 - onchip}
 
     def rule_paths(layer_sets, n_keys: int, words) -> dict:
         """The paths bloom_onchip.onchip_reason picks for each of
@@ -301,8 +337,8 @@ def main() -> None:
         paths[f"lsm_probe {path}"] = {
             "cases": len(errs), "max_abs_err": max(errs, default=-1),
             "launches": path_counts()[path]}
-    for name, fn in (("bloom_probe", bloom_probe),
-                     ("cascade_probe", cascade_probe)):
+    for name, fn in ((k, kernels[k]) for k in
+                     ("bloom_probe", "cascade_probe") + bloomier_kernels):
         for path in ("onchip", "gather"):
             errs = [b for k, c, b in results if k == name
                     and c.startswith(path)]
@@ -483,15 +519,23 @@ def main() -> None:
     torch.cuda.synchronize()
     check(all(v == 1 for v in filter_launches.values()),
           f"FilterService.probe launches {filter_launches}, not one each")
-    filter_paths = {"bloom_probe": bloom_paths(bloom_probe),
-                    "cascade_probe": bloom_paths(cascade_probe)}
+    filter_paths = {k: bloom_paths(kernels[k]) for k in
+                    ("bloom_probe", "cascade_probe") + bloomier_kernels}
     flay0, flay4 = fstate.bank.layouts[0], fstate.bank.layouts[4]
+    flx, fle, flc = fstate.bank.layouts[1:4]
+    f_geos = {"xor_probe": geometries((flx, flx.alpha)),
+              "exact_probe": geometries((fle, 1)),
+              "chained_probe": geometries(
+                  *(() if flc.xor is None else ((flc.xor, flc.xor.alpha),)),
+                  (flc.exact, 1))}
+    f_plans = {k: bloomier_onchip.plan(g) for k, g in f_geos.items()}
     filter_rule = {
         "bloom_probe": rule_paths([((flay0.m_bits, flay0.k, flay0.seed,
                                      flay0.offset),)], F_QUERIES,
                                   fstate.tables),
         "cascade_probe": rule_paths([flay4.probe_params()], F_QUERIES,
-                                    fstate.tables)}
+                                    fstate.tables),
+        **{k: bloomier_rule(g, F_QUERIES) for k, g in f_geos.items()}}
     check(filter_paths == filter_rule,
           f"the filters bank probe took paths {filter_paths}, the rule says "
           f"{filter_rule}")
@@ -528,8 +572,12 @@ def main() -> None:
           f"{t_fbuild:.1f} s (" + ", ".join(f"{k} {v:.1f}" for k, v in
                                               builds.items())
           + f") | probe of {F_QUERIES} queries: launches {filter_launches}, "
-          f"bloom_probe and cascade_probe by path {filter_paths} "
-          f"(bloom_onchip.onchip_reason: {filter_rule}), "
+          f"by path {filter_paths} (bloom_onchip.onchip_reason, "
+          f"bloomier_onchip.onchip_reason: {filter_rule}; planes in one "
+          f"block, bytes: " + json.dumps({k: None if p is None else
+                                          p.smem_bytes
+                                          for k, p in f_plans.items()})
+          + "), "
           f"member and probes == host on every query, avg_probes "
           f"{[round(float(p), 6) for p in fstats['avg_probes']]}, hit_rate "
           f"{[round(float(h), 6) for h in fstats['hit_rate']]} | exact over their "
@@ -621,6 +669,9 @@ def main() -> None:
                  offset=le.offset)
     cargs = ops.chained_and_params(lc)
     layers, cdesc = ls.probe_params(), fstate.descs[4]
+    # the planes the service packed for this bank (FilterService.prepare)
+    xplane, eplane = fstate.planes[1][0], fstate.planes[2][0]
+    cplanes = fstate.planes[3]
     c_pass = (int((chained_probe(fwords, fhi, flo, **cargs)[1] == 2).sum())
               if lc.xor is not None else fn)
     reach = cascade_probe(fwords, fhi, flo, cdesc, layers=layers)[1]
@@ -634,17 +685,17 @@ def main() -> None:
     s1_ops = 0 if lc.xor is None else bloomier_ops(lc.xor.mode, True) * fn
     runs.update({
         "xor_probe": (
-            lambda: (xor_probe(fwords, fhi, flo, **xargs),),
+            lambda: (xor_probe(fwords, fhi, flo, **xargs, plane=xplane),),
             lambda: (xor_probe_ref(fwords, fhi, flo, **xargs),),
             12 * fn + 4 * lx.width,
             (OPS_KEY + bloomier_ops(lx.mode, True)) * fn, fn),
         "exact_probe": (
-            lambda: (exact_probe(fwords, fhi, flo, **eargs),),
+            lambda: (exact_probe(fwords, fhi, flo, **eargs, plane=eplane),),
             lambda: (exact_probe_ref(fwords, fhi, flo, **eargs),),
             12 * fn + 4 * le.width,
             (OPS_KEY + bloomier_ops(le.mode, le.strategy == "a")) * fn, fn),
         "chained_probe": (
-            lambda: chained_probe(fwords, fhi, flo, **cargs),
+            lambda: chained_probe(fwords, fhi, flo, **cargs, planes=cplanes),
             lambda: chained_probe_ref(fwords, fhi, flo, **cargs),
             16 * fn + 4 * lc.width,
             OPS_KEY * fn + s1_ops
@@ -671,17 +722,45 @@ def main() -> None:
           f"of k = {lb.k}", flush=True)
     # bloom_probe's and cascade_probe's two paths, each timed beside the
     # other, and the layer sets onchip_reason decides by
+    def bloom_rule(layer_set, words):
+        return lambda m: bloom_onchip.onchip_reason(
+            layer_set, m, words.numel(), words.data_ptr())
+
+    def bloomier_why(name):
+        return lambda m: bloomier_onchip.onchip_reason(f_geos[name], m)
+
+    # each path as a function of the first m keys
+    bloomier_paths = {
+        "xor_probe": (
+            lambda m: (xor_probe_gather(fwords, fhi[:m], flo[:m], **xargs),),
+            lambda m: (xor_probe_onchip(fwords, fhi[:m], flo[:m], **xargs,
+                                        plane=xplane),)),
+        "exact_probe": (
+            lambda m: (exact_probe_gather(fwords, fhi[:m], flo[:m],
+                                          **eargs),),
+            lambda m: (exact_probe_onchip(fwords, fhi[:m], flo[:m], **eargs,
+                                          plane=eplane),)),
+        "chained_probe": (
+            lambda m: chained_probe_gather(fwords, fhi[:m], flo[:m], **cargs),
+            lambda m: chained_probe_onchip(fwords, fhi[:m], flo[:m], **cargs,
+                                           planes=cplanes)),
+    }
     onchip_runs = {
         "bloom_probe": (
             lambda: (bloom_probe_gather(bstate.tables, hi, lo, **bargs),),
             lambda: (bloom_probe_onchip(bstate.tables, hi, lo, **bargs),),
-            ((blay.m_bits, blay.k, blay.seed, blay.offset),), bstate.tables),
+            bloom_rule(((blay.m_bits, blay.k, blay.seed, blay.offset),),
+                       bstate.tables)),
         "cascade_probe": (
             lambda: cascade_probe_gather(fwords, fhi, flo, cdesc,
                                          layers=layers),
             lambda: cascade_probe_onchip(fwords, fhi, flo, cdesc,
                                          layers=layers),
-            layers, fwords),
+            bloom_rule(layers, fwords)),
+        # the on-chip path only where the bank's planes fit one block
+        **{k: (functools.partial(g, fn),
+               None if f_plans[k] is None else functools.partial(o, fn),
+               bloomier_why(k)) for k, (g, o) in bloomier_paths.items()},
     }
     # lsm_probe's gather path, timed beside the window path that the main
     # path takes
@@ -741,18 +820,23 @@ def main() -> None:
                "cascade_probe": ("src/repro_torch/csrc/bloom_onchip.cu",
                                  "src/repro/kernels/cascade_probe.py:49")}
     gather_sources = {"bloom_probe": "src/repro_torch/csrc/bloom_probe.cu",
-                      "cascade_probe": "src/repro_torch/csrc/cascade_probe.cu"}
+                      "cascade_probe": "src/repro_torch/csrc/cascade_probe.cu",
+                      "xor_probe": "src/repro_torch/csrc/xor_probe.cu",
+                      "exact_probe": "src/repro_torch/csrc/xor_probe.cu",
+                      "chained_probe": "src/repro_torch/csrc/chained_probe.cu"}
     # each path's launches on the driven paths: the bloom grid's bank probe
     # and the filters bank's probe
     path_launches = {k: {p: grid_paths.get(p, 0) * (k == "bloom_probe")
                          + filter_paths[k][p] for p in ("onchip", "gather")}
-                     for k in ("bloom_probe", "cascade_probe")}
+                     for k in ("bloom_probe", "cascade_probe")
+                     + bloomier_kernels}
     # launches on the paths that were driven: the main path's get_batch and
     # bank probe, the bloom grid's bank probe, the filter bank's probe
     launches = {k: main_launches.get(k, 0) + filter_launches.get(k, 0)
                 for k in kernels}
     records = []
     for name, (kern, plain, n_bytes, n_ops, n_keys) in runs.items():
+        src, replaces = sources[name]
         got, want = kern(), plain()
         err = max_err(got, want)
         check(err == 0, f"{name}: kernel != plain version at the main shapes")
@@ -804,15 +888,31 @@ def main() -> None:
                     f"window path: partition alone {part_ms:.4f} ms; per "
                     f"kernel, device us per call: {breakdown}")
         elif name in onchip_runs:
-            gather, onchip, layer_set, words = onchip_runs[name]
-            extra, note = paths_in_turns(gather, onchip, want)
-            why = bloom_onchip.onchip_reason(layer_set, n_keys, words.numel(),
-                                             words.data_ptr())
+            gather, onchip, why_at = onchip_runs[name]
+            why = why_at(n_keys)
+            if onchip is not None:
+                extra, note = paths_in_turns(gather, onchip, want)
+            else:
+                check(max_err(gather(), want) == 0,
+                      f"{name}: gather path != plain version")
+                extra = {"gather_ms": graph_ms(gather)[0], "onchip_ms": None}
+                note = f"no on-chip path here: {why}"
             ms, per = graph_ms(kern)
             extra.update({"gather_source": gather_sources[name],
                           "path": "onchip" if why is None else "gather",
                           **{f"{p}_launches": c
                              for p, c in path_launches[name].items()}})
+            if name in bloomier_kernels:
+                fp = f_plans[name]
+                planes = {"xor_probe": (xplane,), "exact_probe": (eplane,),
+                          "chained_probe": cplanes}[name]
+                extra["plane_bytes"] = sum(4 * p.words.numel()
+                                           for p in planes)
+                if why is None:
+                    src = "src/repro_torch/csrc/bloomier_onchip.cu"
+                note = (f"planes {extra['plane_bytes']} B ("
+                        f"{'one block holds them' if fp else 'over one block'}"
+                        f") | {note}")
             note = (f" | the wrapper takes the "
                     f"{'on-chip path' if why is None else f'gather path ({why})'}"
                     f" | {note}")
@@ -862,7 +962,6 @@ def main() -> None:
         eager_ms, _ = cuda_ms(kern)
         plain_ms, _ = cuda_ms(plain, windows=1)
         bound_ms, bound_by = bound(n_bytes, n_ops, int32_per_s)
-        src, replaces = sources[name]
         records.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
                         "launches": launches[name], "max_abs_err": err,
@@ -988,6 +1087,111 @@ def main() -> None:
           + f" | {per_probe * 1e3:.2f} us per probe of all keys; half full "
           f"costs {run:.2f} probes a key where the keys need {needed:.3f} "
           f"({run / needed:.2f}x) | {card}", flush=True)
+
+    # what bounds the Bloomier gather kernels: xor_probe's gather kernel
+    # (alpha 8, fuse) over synthetic tables from 96 B (every gather hits one
+    # line: the hash-and-issue floor) to 67 MB (past the L2), at the
+    # filters cell's 4,000,000 queries, 3 gathers a key
+    foot = []
+    for seg_len, n_seg in ((8, 3), (512, 12), (1024, 53), (1024, 140),
+                           (2048, 140), (8192, 140), (16384, 221),
+                           (16384, 1024)):
+        bank_s, a_s = selfcheck.synthetic_bloomier(
+            "xor_probe", ((seg_len, n_seg, 8),))
+        words_s = common.to_device(bank_s, dev)
+        foot.append((4 * seg_len * n_seg, graph_ms(lambda: xor_probe_gather(
+            words_s, fhi, flo, **a_s))[0]))
+        del words_s
+    print(f"time gather rate against the table's footprint (xor_probe's "
+          f"gather kernel, alpha 8, {fn} keys), bytes, device ms, G "
+          f"gathers/s: " + ", ".join(f"{b} {ms:.4f} {3 * fn / ms / 1e6:.1f}"
+                                     for b, ms in foot) + f" | {card}",
+          flush=True)
+    # chained_probe's gather kernel (the path the filters bank takes) over
+    # three pass mixes: every key passes stage 1 (positives), ~1/2^alpha
+    # do (unseen keys), the cell's mix: what stage 2 and its early exit
+    # cost
+    mixes = {"positives": np.random.default_rng(1).choice(pos, fn),
+             "unseen": fkeys[F_POS * (F_LAMBDA + 1):],
+             "cell mix": queries}
+    for label, q in mixes.items():
+        qh, ql = common.key_lanes(q, dev)
+        c_g = lambda: chained_probe_gather(fwords, qh, ql, **cargs)
+        want = chained_probe_ref(fwords, qh, ql, **cargs)
+        check(max_err(c_g(), want) == 0,
+              f"chained_probe ({label}): gather path != plain version")
+        q_pass = int((want[1] == 2).sum())
+        c_ms = graph_ms(c_g)[0]
+        print(f"time chained_probe gather kernel over {label}: stage-1 "
+              f"passes {q_pass / fn:.4f}, {c_ms:.4f} ms, "
+              f"{(3 * fn + 3 * q_pass) / c_ms / 1e6:.1f} G gathers/s | {card}",
+              flush=True)
+    # the gather rate each gather row achieves at its main shapes
+    rec = {r["name"]: r for r in records}
+    achieved = {
+        "xor_probe": 3 * fn / rec["xor_probe"]["gather_ms"],
+        "exact_probe": 3 * fn / rec["exact_probe"]["gather_ms"],
+        "chained_probe": (3 * fn + 3 * c_pass)
+        / rec["chained_probe"]["gather_ms"],
+        "lsm_chain_probe": (3 * n + 2 * passes[0])
+        / rec["lsm_chain_probe"]["ms"],
+        "lsm_probe gather path": gathers / rec["lsm_probe"]["gather_ms"]}
+    print("time gather rows, achieved G gathers/s (3 a Bloomier match, 2 an "
+          "Othello stage 2): " + ", ".join(f"{k} {v / 1e6:.1f}"
+                                          for k, v in achieved.items())
+          + f" | {card}", flush=True)
+    # what a published bank's planes cost to pack (FilterService.prepare
+    # and refresh_tables; kernels/ops.py's one-shot queries pack per call)
+    pack_ms = {name: graph_ms(lambda: layout_planes((lay_k,), fwords))[0]
+               for name, lay_k in (("xor_probe", flx), ("exact_probe", fle),
+                                   ("chained_probe", flc))}
+    print("time pack_plane at the filters cell, device ms per bank: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in pack_ms.items())
+          + f" | {card}", flush=True)
+    # where the Bloomier on-chip path pays: both paths over the first m of
+    # the 4,000,000 queries, in turns (gather, on-chip): the filters cell's
+    # exact table, and an Xor plane and two chained planes that fit one
+    # block (the cell's own Xor and ChainedFilterAnd planes do not)
+    sweeps = [("exact_probe at the filters cell", *bloomier_paths[
+        "exact_probe"], f_geos["exact_probe"])]
+    for kernel, label, tables_s in (
+            ("xor_probe", "xor_probe, alpha 8, 1024 x 226 slots (231424 B "
+             "plane)", ((1024, 226, 8),)),
+            ("chained_probe", "chained_probe, alpha 3, 2048 x 100 and 8192 x "
+             "100 slots (204800 B of planes)",
+             ((2048, 100, 3), (8192, 100, 1)))):
+        bank_s, a_s = selfcheck.synthetic_bloomier(kernel, tables_s)
+        words_s = common.to_device(bank_s, dev)
+        geos_s = selfcheck.bloomier_geometries(kernel, tables_s)
+        # the planes packed once, as FilterService holds them
+        lays_s = ((a_s["l1"], a_s["alpha"]), (a_s["l2"], 1)) \
+            if kernel == "chained_probe" else (
+                (tuple(a_s[k] for k in ("mode", "seed", "seg_len", "n_seg",
+                                        "offset")), a_s["alpha"]),)
+        planes_s = tuple(bloomier_onchip.pack_plane(words_s, lay_s, al)
+                         for lay_s, al in lays_s)
+        g_s = selfcheck.bloomier_calls(kernel, a_s, words_s, "gather")[0]
+        o_s = selfcheck.bloomier_calls(
+            kernel, dict(a_s, **({"planes": planes_s}
+                                 if kernel == "chained_probe"
+                                 else {"plane": planes_s[0]})),
+            words_s, "onchip")[0]
+        sweeps.append((label,
+                       functools.partial(lambda g, m: g(fhi[:m], flo[:m]), g_s),
+                       functools.partial(lambda o, m: o(fhi[:m], flo[:m]), o_s),
+                       geos_s))
+    for label, g_at, o_at, geos_s in sweeps:
+        points = [(m, graph_ms(functools.partial(g_at, m))[0],
+                   graph_ms(functools.partial(o_at, m))[0]) for m in sizes]
+        faster = [m for m, g, o in points if o < g]
+        rule = [m for m, _, _ in points
+                if bloomier_onchip.onchip_reason(geos_s, m) is None]
+        print(f"time on-chip crossover, {label}, device ms (gather, on-chip) "
+              f"over m keys: " + ", ".join(f"{m} {g:.4f} {o:.4f}"
+                                           for m, g, o in points)
+              + f" | the on-chip path is faster at {faster}; the rule "
+              f"(bloomier_onchip.onchip_reason) takes it at {rule} | {card}",
+              flush=True)
 
     def host_ms(fn, reps: int = 3) -> float:
         fn()                                             # warm

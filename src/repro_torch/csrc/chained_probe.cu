@@ -5,14 +5,15 @@
 // Bloomier stage 2 over one packed bank, with the sequential probe count
 // 1 + (stage 1 passed), or 1 for a filter without stage 1 (lambda < 2).
 //
-// What bounds it here: stage 1 hashes 5 times and gathers 3 words for
-// every key; stage 2 (4 or 5 hashes, 3 gathers) is needed only where
-// stage 1 passes, which at lambda = 8 and alpha = 3 is a stored key or
-// ~1/8 of the rest. ~100-200 integer ops per key against 16 compulsory
-// bytes (two key lanes in, two int32 out): at 4M keys ~0.5-0.7 G ops
-// (~0.03-0.04 ms at the INT32 peak) over ~64 MB (~0.02 ms), so the INT32
-// pipes set the floor; the gathers are 32-byte L2 sectors while the
-// bank's two tables (13.5 MB at 1M positives) fit in L2.
+// What bounds it here (PERF.md, Findings; NVIDIA H100 80GB HBM3, 700 W):
+// the rate of its random 4-byte gathers (3 a key for stage 1, 3 more where
+// stage 1 passes), not the integer work: ~123-130 G gathers/s over the
+// filters cell's 13.8 MB bank, an L2 sector a gather, whether every key
+// passes stage 1 (0.185 ms), 1/8 do (0.109 ms) or the cell's mix (19%,
+// 0.115 ms). The time follows the gathers the keys need: stage 2's early
+// exit costs no lost lanes that show. Where both stages' narrow planes fit
+// one block, the on-chip path (bloomier_onchip.cu) reads them from shared
+// memory instead.
 //
 // What the design does about it: one thread per key over flat hi/lo
 // lanes, stage 2 skipped where stage 1 rejects (member is then 0 and the

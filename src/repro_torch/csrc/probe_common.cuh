@@ -1,6 +1,6 @@
 // Device functions shared by the probe kernels (lsm_probe.cu, lsm_window.cu,
 // bloom_probe.cu, bloom_onchip.cu, xor_probe.cu, chained_probe.cu,
-// cascade_probe.cu).
+// bloomier_onchip.cu, cascade_probe.cu).
 //
 // Each mirrors, bit for bit, a host function of the port and of the JAX
 // package:
@@ -9,6 +9,7 @@
 //   xor_lookup                     <- kernels/common.py xor_slots + xor_lookup
 //   bloomier_match                 <- kernels/ref.py xor_probe_ref and
 //                                     exact_bloomier_ref
+//   SharedPlane                    <- kernels/bloomier_onchip.py pack_plane
 //   othello_hit                    <- kernels/common.py othello_hit
 // All arithmetic is uint32 and wraps mod 2^32, as the host versions do:
 // seeds combine as seed*1000+i (Bloom), seed*7919+i (Xor slots), 3*seed+1
@@ -66,6 +67,23 @@ struct SharedWords {
   }
 };
 
+// A Bloomier table's narrow plane staged in shared memory: the low bits of
+// each slot as a field of 2^log_width bits (1, 2, 4, 8 or 16), packed
+// LSB-first, 2^log_fields fields a word, so no field straddles a word.
+// Indexed by the slot's position in its table. The bits above alpha are 0,
+// so a compare under a mask of alpha bits sees what the slot word gives.
+struct SharedPlane {
+  const uint32_t* p;
+  uint32_t log_fields;   // log2(32 / width)
+  uint32_t log_width;
+  uint32_t field_mask;   // 2^width - 1
+  __device__ __forceinline__ uint32_t operator[](uint32_t slot) const {
+    const uint32_t w = p[slot >> log_fields];
+    return (w >> ((slot & ((1u << log_fields) - 1u)) << log_width)) &
+           field_mask;
+  }
+};
+
 // k-hash Bloom test: bit fastrange(hash(seed*1000+i), m_bits) for every i;
 // the first zero bit decides a miss, so later hashes are skipped. One
 // function for every word source, so the hash, the fastrange and the exit
@@ -108,6 +126,25 @@ __device__ __forceinline__ uint32_t segment_slot(uint32_t hi, uint32_t lo,
   return fastrange(hash_u32(hi, lo, seed * 7919u + i), seg_len);
 }
 
+// XOR of the key's three Bloomier slots in the window of three segments
+// that starts at segment `start` (0 for the uniform layout, whose slot i
+// lies in segment i), read from any slot source: the bank (GlobalWords,
+// `offset` the table's first word) or a staged plane (SharedPlane,
+// `offset` 0).
+template <class Slots>
+__device__ __forceinline__ uint32_t xor_window(const Slots& slots, uint32_t hi,
+                                               uint32_t lo, uint32_t start,
+                                               uint32_t seed, uint32_t seg_len,
+                                               uint32_t offset) {
+  uint32_t v = 0u;
+#pragma unroll
+  for (uint32_t i = 0; i < 3u; ++i) {
+    v ^= slots[offset + (start + i) * seg_len +
+               segment_slot(hi, lo, seed, i, seg_len)];
+  }
+  return v;
+}
+
 // XOR of the key's three Bloomier slots. Uniform layout: slot i lies in
 // segment i. Fuse layout: a window of three consecutive segments starting
 // at window_start.
@@ -118,13 +155,7 @@ __device__ __forceinline__ uint32_t xor_lookup(const uint32_t* __restrict__ word
                                                uint32_t n_seg_m2,
                                                uint32_t offset) {
   uint32_t start = fuse ? window_start(hi, lo, seed, n_seg_m2) : 0u;
-  uint32_t v = 0u;
-#pragma unroll
-  for (uint32_t i = 0; i < 3u; ++i) {
-    v ^= word(words, offset + (start + i) * seg_len +
-                         segment_slot(hi, lo, seed, i, seg_len));
-  }
-  return v;
+  return xor_window(GlobalWords{words}, hi, lo, start, seed, seg_len, offset);
 }
 
 // One Bloomier table of a packed bank and the test a key must pass there
@@ -143,14 +174,31 @@ struct BloomierParams {
   uint32_t target;
 };
 
+// The key's target compared with a slot XOR in the bits of mask.
+__device__ __forceinline__ bool bloomier_decide(uint32_t v, uint32_t hi,
+                                                uint32_t lo,
+                                                const BloomierParams& p) {
+  uint32_t t = p.hash_target ? hash_u32(hi, lo, p.target) : p.target;
+  return ((v ^ t) & p.mask) == 0u;
+}
+
 // The key's three-slot XOR equals its target in the bits of mask.
 __device__ __forceinline__ bool bloomier_match(const uint32_t* __restrict__ words,
                                                uint32_t hi, uint32_t lo,
                                                const BloomierParams& p) {
   uint32_t v = xor_lookup(words, hi, lo, p.fuse != 0u, p.seed, p.seg_len,
                           p.n_seg_m2, p.offset);
-  uint32_t t = p.hash_target ? hash_u32(hi, lo, p.target) : p.target;
-  return ((v ^ t) & p.mask) == 0u;
+  return bloomier_decide(v, hi, lo, p);
+}
+
+// bloomier_match over a staged plane, the key's window start given (0 for
+// the uniform layout): the same slots, hash and compare.
+__device__ __forceinline__ bool bloomier_match(const SharedPlane& plane,
+                                               uint32_t hi, uint32_t lo,
+                                               uint32_t start,
+                                               const BloomierParams& p) {
+  uint32_t v = xor_window(plane, hi, lo, start, p.seed, p.seg_len, 0u);
+  return bloomier_decide(v, hi, lo, p);
 }
 
 // Stage 1 of an LSM ChainedFilter: the alpha-bit fingerprint match.

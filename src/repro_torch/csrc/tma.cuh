@@ -1,6 +1,6 @@
 // Bulk copies into shared memory on an mbarrier (PTX), shared by the
-// kernels that stage bank words on chip: lsm_window.cu (fuse windows) and
-// bloom_onchip.cu (Bloom bitmaps).
+// kernels that stage bank words on chip: lsm_window.cu (fuse windows),
+// bloom_onchip.cu (Bloom bitmaps) and bloomier_onchip.cu (narrow planes).
 //
 // One thread arms a barrier with the bytes it expects and issues
 // cp.async.bulk; every thread that reads the copy waits on the barrier's

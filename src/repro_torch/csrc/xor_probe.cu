@@ -10,13 +10,17 @@
 // and hash(fp_seed); the exact filter's 1 and hash(bit_seed) (strategy a)
 // or the constant 1 (strategy b).
 //
-// What bounds it here: per key 4 hashes for the fuse window and the three
-// slots plus one for the target (~18 integer ops each, ~95 in all) and
-// three random 4-byte gathers, against 12 compulsory bytes (two key lanes
-// in, one int32 out). At 4M keys that is ~0.38 G ops (~0.023 ms at the
-// INT32 peak) over ~48 MB (~0.014 ms at HBM rate): the INT32 pipes set the
-// floor. Each gather costs a 32-byte sector, served from L2 while the
-// table (4.5 MB for 1M keys) stays there.
+// What bounds it here (PERF.md, Findings; NVIDIA H100 80GB HBM3, 700 W):
+// the rate of its three random 4-byte gathers a key, not the integer
+// work. Over synthetic tables at 4M keys it runs at 393-405 G gathers/s
+// where every gather hits an SM's L1 (96 B-24 KB: the hash-and-issue
+// floor, 0.030 ms, near the 0.027 ms the ~113 integer ops a key take at
+// the INT32 peak), 344 G/s at 217 KB, then 125-138 G/s from 573 KB to
+// 14.5 MB, where each gather costs a 32-byte L2 sector, and 47 G/s at
+// 67 MB, past the L2. The filters cell's tables (4.6 and 6.9 MB) sit on
+// the L2 plateau: 0.095 ms against a 0.027 ms bound. Where the table's
+// narrow plane fits one block, the on-chip path (bloomier_onchip.cu)
+// reads it from shared memory instead.
 //
 // What the design does about it: one thread per key over flat hi/lo lanes
 // (coalesced key loads and stores), the hashes and XOR in registers, the

@@ -51,6 +51,8 @@ SIGNATURES = {
         [P, U32, U32, I32, U32, U32, U32, U32, P, P, P, I64, I64, P],
     ("bloom_onchip", "cascade_onchip_launch"):
         [P, U32, U32, I32, P, I32, P, P, P, P, I64, I64, P],
+    ("bloomier_onchip", "bloomier_onchip_launch"):
+        [PU32, I32, P, P, U32, P, P, P, P, I64, I64, P],
     ("xor_probe", "bloomier_probe_launch"):
         [P, P, P, P, PU32, I64, P],
     ("chained_probe", "chained_probe_launch"):

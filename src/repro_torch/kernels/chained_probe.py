@@ -10,16 +10,24 @@ or 1 for a filter without stage 1 (λ < 2).
 ``l1``/``l2`` are the JAX package's layout tuples ``(mode, seed, seg_len,
 n_seg, offset)``, ``l1`` None without stage 1 (``ops.chained_and_params``
 makes them from a ``ChainedAndLayout``). On a CUDA tensor
-``chained_probe`` launches ``csrc/chained_probe.cu`` and counts the
-launch; on a CPU tensor it runs ``chained_probe_ref``.
+``chained_probe`` launches one of two hand-written paths and counts the
+launch, in ``launches`` and in ``onchip_launches`` or ``gather_launches``:
+the on-chip path (``csrc/bloomier_onchip.cu``: both stages' narrow planes
+in every block's shared memory) wherever ``bloomier_onchip.onchip_reason`` sends the probe
+there, the gather path (``csrc/chained_probe.cu``) elsewhere. ``planes``
+are the stages' ``bloomier_onchip.pack_plane`` in stage order (packed per
+call where not given). ``chained_probe_onchip`` and
+``chained_probe_gather`` call one path directly. On a CPU tensor each
+runs its plain version.
 """
 from __future__ import annotations
 
 import torch
 
-from . import _build, ref
+from . import _build, bloomier_onchip, ref
 from .common import check_probe_args
-from .xor_probe import exact_fields, xor_fields
+from .xor_probe import (count_launch, exact_fields, exact_stage,
+                        xor_fields, xor_stage)
 
 _LAYOUT_KEYS = ("mode", "seed", "seg_len", "n_seg", "offset")
 
@@ -41,21 +49,53 @@ def chained_probe_ref(words, hi, lo, *, l1: tuple | None, l2: tuple,
     return member, probes
 
 
+def _stages(words, l1, l2, alpha, fp_seed, strategy, bit_seed):
+    """(fields, on-chip stages) in stage order; stage 1 only with l1."""
+    fields = (exact_fields(words, **_layout(l2), strategy=strategy,
+                           bit_seed=bit_seed),)
+    stages = (exact_stage(**_layout(l2), strategy=strategy,
+                          bit_seed=bit_seed),)
+    if l1 is not None:
+        fields = (xor_fields(words, **_layout(l1), alpha=alpha,
+                             fp_seed=fp_seed),) + fields
+        stages = (xor_stage(**_layout(l1), alpha=alpha,
+                            fp_seed=fp_seed),) + stages
+    return fields, stages
+
+
 def chained_probe(words, hi, lo, *, l1: tuple | None, l2: tuple, alpha: int,
-                  fp_seed: int, strategy: str, bit_seed: int
+                  fp_seed: int, strategy: str, bit_seed: int,
+                  planes: tuple | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """words: int32 [W] packed bank holding both stages; hi/lo: int32 key
-    lanes of any shape. Returns (member, probes) int32 of hi's shape."""
+    lanes of any shape. Returns (member, probes) int32 of hi's shape. On
+    the card the on-chip path serves every probe that
+    ``bloomier_onchip.onchip_reason`` sends to it, the gather path every
+    other."""
+    args = dict(l1=l1, l2=l2, alpha=alpha, fp_seed=fp_seed,
+                strategy=strategy, bit_seed=bit_seed)
     check_probe_args(words, hi, lo)
-    stage2 = exact_fields(words, **_layout(l2), strategy=strategy,
-                          bit_seed=bit_seed)
-    # without stage 1 the kernel reads no stage-1 fields
-    stage1 = (stage2 if l1 is None else
-              xor_fields(words, **_layout(l1), alpha=alpha, fp_seed=fp_seed))
+    _, stages = _stages(words, **args)
     if not words.is_cuda:
-        return chained_probe_ref(words, hi, lo, l1=l1, l2=l2, alpha=alpha,
-                                 fp_seed=fp_seed, strategy=strategy,
-                                 bit_seed=bit_seed)
+        return chained_probe_ref(words, hi, lo, **args)
+    if bloomier_onchip.stages_reason(stages, hi.numel()) is None:
+        return chained_probe_onchip(words, hi, lo, **args, planes=planes)
+    return chained_probe_gather(words, hi, lo, **args)
+
+
+def chained_probe_gather(words, hi, lo, *, l1: tuple | None, l2: tuple,
+                         alpha: int, fp_seed: int, strategy: str,
+                         bit_seed: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``chained_probe``'s gather path (``csrc/chained_probe.cu``) on any
+    probe."""
+    args = dict(l1=l1, l2=l2, alpha=alpha, fp_seed=fp_seed,
+                strategy=strategy, bit_seed=bit_seed)
+    check_probe_args(words, hi, lo)
+    fields, _ = _stages(words, **args)
+    if not words.is_cuda:
+        return chained_probe_ref(words, hi, lo, **args)
+    # without stage 1 the kernel reads no stage-1 fields
+    stage1, stage2 = fields[0], fields[-1]
     words, hi, lo = words.contiguous(), hi.contiguous(), lo.contiguous()
     member, probes = torch.empty_like(hi), torch.empty_like(hi)
     with torch.cuda.device(words.device):
@@ -64,8 +104,27 @@ def chained_probe(words, hi, lo, *, l1: tuple | None, l2: tuple, alpha: int,
             probes.data_ptr(), int(l1 is not None), stage1, stage2,
             hi.numel(), torch.cuda.current_stream(words.device).cuda_stream)
     _build.check(err, "chained_probe")
-    chained_probe.launches += 1
+    count_launch(chained_probe, "gather")
     return member, probes
 
 
-chained_probe.launches = 0
+def chained_probe_onchip(words, hi, lo, *, l1: tuple | None, l2: tuple,
+                         alpha: int, fp_seed: int, strategy: str,
+                         bit_seed: int, planes: tuple | None = None
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``chained_probe``'s on-chip path (``csrc/bloomier_onchip.cu``) on
+    any probe whose planes fit one block (``bloomier_onchip.plan``). On the
+    CPU: its plain version, every slot read from the planes."""
+    check_probe_args(words, hi, lo)
+    fields, stages = _stages(words, l1, l2, alpha, fp_seed, strategy,
+                             bit_seed)
+    member, probes = bloomier_onchip.run(
+        words, hi, lo, stages, fields, planes=planes, with_probes=True, what="chained_probe")
+    if words.is_cuda:
+        count_launch(chained_probe, "onchip")
+    return member, probes
+
+
+# launches of either path, and of each
+chained_probe.launches = chained_probe.onchip_launches = 0
+chained_probe.gather_launches = 0

@@ -30,18 +30,21 @@ from repro_torch.core.lsm import ChainedTableFilter
 from repro_torch.core.othello import DynamicExactFilter
 from repro_torch.core.tables import (BloomTable, LsmChainLayout, OthelloTable,
                                      concat_tables)
-from . import bloom_onchip, common, lsm_window
+from . import bloom_onchip, bloomier_onchip, common, lsm_window
 from .bloom_probe import (bloom_probe, bloom_probe_gather, bloom_probe_onchip,
                           bloom_probe_ref)
 from .cascade_probe import (cascade_descriptors, cascade_probe,
                             cascade_probe_gather, cascade_probe_onchip,
                             cascade_probe_ref)
-from .chained_probe import chained_probe, chained_probe_ref
+from .chained_probe import (chained_probe, chained_probe_gather,
+                            chained_probe_onchip, chained_probe_ref)
 from .lsm_probe import (chain_descriptors, lsm_chain_probe,
                         lsm_chain_probe_ref, lsm_probe, lsm_probe_gather,
                         lsm_probe_ref, lsm_probe_window)
 from .ops import chained_and_params
-from .xor_probe import exact_probe, exact_probe_ref, xor_probe, xor_probe_ref
+from .xor_probe import (exact_probe, exact_probe_gather, exact_probe_onchip,
+                        exact_probe_ref, xor_probe, xor_probe_gather,
+                        xor_probe_onchip, xor_probe_ref)
 
 KINDS = ("fuse", "uniform", "nos1", "bloom", "always")
 FILTER_SEED = 2**31 + 12_345        # every filter seed >= 2**31
@@ -314,27 +317,54 @@ def filter_case(kernel: str, arg, per: int = 1000, seed: int = 0):
     return tables, lay, q, f
 
 
+# the Bloomier probes' entry points: the wrapper (on-chip path where
+# bloomier_onchip.onchip_reason sends the probe, else gather) or one path
+XOR_PATHS = {None: xor_probe, "onchip": xor_probe_onchip,
+             "gather": xor_probe_gather}
+EXACT_PATHS = {None: exact_probe, "onchip": exact_probe_onchip,
+               "gather": exact_probe_gather}
+CHAINED_PATHS = {None: chained_probe, "onchip": chained_probe_onchip,
+                 "gather": chained_probe_gather}
+
+
+def bloomier_calls(kernel: str, a: dict, words: torch.Tensor,
+                   path: str | None = None):
+    """(kernel, plain version) of ``xor_probe`` / ``exact_probe`` /
+    ``chained_probe`` with keyword arguments ``a`` over the bank ``words``:
+    functions of (hi, lo) returning a tuple of int32 outputs."""
+    if kernel == "chained_probe":
+        probe = CHAINED_PATHS[path]
+        return (lambda hi, lo: probe(words, hi, lo, **a),
+                lambda hi, lo: chained_probe_ref(words, hi, lo, **a))
+    paths, plain = ((XOR_PATHS, xor_probe_ref) if kernel == "xor_probe"
+                    else (EXACT_PATHS, exact_probe_ref))
+    probe = paths[path]
+    return (lambda hi, lo: (probe(words, hi, lo, **a),),
+            lambda hi, lo: (plain(words, hi, lo, **a),))
+
+
+def bloomier_args(kernel: str, lay) -> dict:
+    """The keyword arguments of a Bloomier probe of the layout ``lay``."""
+    if kernel == "xor_probe":
+        return dict(mode=lay.mode, seed=lay.seed, seg_len=lay.seg_len,
+                    n_seg=lay.n_seg, alpha=lay.alpha, fp_seed=lay.fp_seed,
+                    offset=lay.offset)
+    if kernel == "exact_probe":
+        return dict(mode=lay.mode, seed=lay.seed, seg_len=lay.seg_len,
+                    n_seg=lay.n_seg, strategy=lay.strategy,
+                    bit_seed=lay.bit_seed, offset=lay.offset)
+    return chained_and_params(lay)
+
+
 def filter_calls(kernel: str, lay, words: torch.Tensor,
                  path: str | None = None):
     """(kernel, plain version) of ``kernel`` on the filter at ``lay`` in
     the bank ``words``: functions of (hi, lo) returning a tuple of int32
-    outputs. ``path``: the cascade's entry point (``CASCADE_PATHS``)."""
-    if kernel == "xor_probe":
-        a = dict(mode=lay.mode, seed=lay.seed, seg_len=lay.seg_len,
-                 n_seg=lay.n_seg, alpha=lay.alpha, fp_seed=lay.fp_seed,
-                 offset=lay.offset)
-        return (lambda hi, lo: (xor_probe(words, hi, lo, **a),),
-                lambda hi, lo: (xor_probe_ref(words, hi, lo, **a),))
-    if kernel == "exact_probe":
-        a = dict(mode=lay.mode, seed=lay.seed, seg_len=lay.seg_len,
-                 n_seg=lay.n_seg, strategy=lay.strategy,
-                 bit_seed=lay.bit_seed, offset=lay.offset)
-        return (lambda hi, lo: (exact_probe(words, hi, lo, **a),),
-                lambda hi, lo: (exact_probe_ref(words, hi, lo, **a),))
-    if kernel == "chained_probe":
-        a = chained_and_params(lay)
-        return (lambda hi, lo: chained_probe(words, hi, lo, **a),
-                lambda hi, lo: chained_probe_ref(words, hi, lo, **a))
+    outputs. ``path``: the entry point (``XOR_PATHS``, ``EXACT_PATHS``,
+    ``CHAINED_PATHS``, ``CASCADE_PATHS``)."""
+    if kernel in ("xor_probe", "exact_probe", "chained_probe"):
+        return bloomier_calls(kernel, bloomier_args(kernel, lay), words,
+                              path)
     layers = lay.probe_params()
     desc = torch.from_numpy(cascade_descriptors(layers)).to(words.device)
     probe = CASCADE_PATHS[path]
@@ -353,6 +383,91 @@ def check_filter_kernel(kernel: str, arg, device, per: int = 1000,
     return max(_differ(g, w) for g, w in zip(kern(hi, lo), plain(hi, lo)))
 
 
+def synthetic_bloomier(kernel: str, tables: tuple, seed: int = FILTER_SEED
+                       ) -> tuple:
+    """(bank uint32, probe keyword arguments) of random fuse Bloomier
+    tables: ``tables`` = ((seg_len, n_seg, alpha), ...), one for xor (α)
+    and exact (α 1, strategy a), stage 1 then stage 2 for chained (stage
+    2's α is 1); seeds ≥ 2**31 (``seed``)."""
+    bank, offsets = bitmap_bank([s * n for s, n, _ in tables],
+                                seed=seed % 997, ors=1)
+    lays = [("fuse", seed + 131 * i, s, n, o)
+            for i, ((s, n, _), o) in enumerate(zip(tables, offsets))]
+    keys = ("mode", "seed", "seg_len", "n_seg", "offset")
+    if kernel == "xor_probe":
+        return bank, dict(zip(keys, lays[0]), alpha=tables[0][2],
+                          fp_seed=seed + 1)
+    if kernel == "exact_probe":
+        return bank, dict(zip(keys, lays[0]), strategy="a", bit_seed=seed + 2)
+    return bank, dict(l1=lays[0], l2=lays[1], alpha=tables[0][2],
+                      fp_seed=seed + 1, strategy="a", bit_seed=seed + 2)
+
+
+def check_bloomier_tables(kernel: str, device, *, tables: tuple,
+                          n: int = 5000, seed: int = FILTER_SEED,
+                          path: str | None = "onchip") -> int:
+    """Largest absolute error of a Bloomier probe over ``synthetic_bloomier``
+    tables, ``n`` keys, against its plain version (0 = agree)."""
+    bank, a = synthetic_bloomier(kernel, tables, seed)
+    words = common.to_device(bank, device)
+    hi, lo = common.key_lanes(_keys(n, seed % 991), device)
+    kern, plain = bloomier_calls(kernel, a, words, path)
+    return max(_differ(g, w) for g, w in zip(kern(hi, lo), plain(hi, lo)))
+
+
+def bloomier_geometries(kernel: str, tables: tuple) -> tuple:
+    """The ``bloomier_onchip.Geometry`` of each ``synthetic_bloomier``
+    table (α 1 for exact and for chained stage 2)."""
+    return tuple(bloomier_onchip.Geometry(
+        "fuse", s, n, 1 if (i == 1 or kernel == "exact_probe") else a)
+        for i, (s, n, a) in enumerate(tables))
+
+
+def bloomier_plan(kernel: str, tables: tuple):
+    """``bloomier_onchip.plan`` of ``synthetic_bloomier`` tables (None
+    where the planes do not fit one block)."""
+    return bloomier_onchip.plan(bloomier_geometries(kernel, tables))
+
+
+# the Bloomier on-chip path's edges (bloomier_onchip.plan): a 1-bit plane
+# at and one segment over what one block stages (16384-slot segments of
+# 2 KB), the filters cell's exact table, the two planes of a chained
+# filter sharing one block, 2-, 4-, 8- and 16-bit fields, the least fuse
+# table (seg_len 8: 8 bits a segment, n_seg 3: one window start), n
+# against the block and the grid stride, seeds; and the filters cell's Xor
+# and ChainedFilterAnd (planes over one block: the gather kernels only)
+ONE_BLOCK_SEGS = bloomier_onchip.BLOCK_BYTES // 2048
+BLOOMIER_TABLE_CASES = (
+    ("exact_probe", "plane at the one-block limit",
+     dict(tables=((16384, ONE_BLOCK_SEGS, 1),))),
+    ("exact_probe", "plane one segment over one block",
+     dict(tables=((16384, ONE_BLOCK_SEGS + 1, 1),))),
+    ("exact_probe", f"filters cell exact table (217 KB plane), n={BIG_N}",
+     dict(tables=((16384, 106, 1),), n=BIG_N)),
+    ("exact_probe", "filters cell exact table, n=1",
+     dict(tables=((16384, 106, 1),), n=1)),
+    ("exact_probe", "filters cell exact table, n=1061",
+     dict(tables=((16384, 106, 1),), n=1061)),
+    ("exact_probe", "least fuse table (seg_len 8, n_seg 3)",
+     dict(tables=((8, 3, 1),))),
+    ("xor_probe", "alpha 2, 2-bit fields", dict(tables=((4096, 100, 2),))),
+    ("xor_probe", "alpha 8 at the one-block limit",
+     dict(tables=((1024, 226, 8),))),
+    ("xor_probe", "alpha 16, 16-bit fields",
+     dict(tables=((1024, 100, 16),))),
+    ("xor_probe", "alpha 3, seed 2**32-1",
+     dict(tables=((8192, 50, 3),), seed=2**32 - 1)),
+    ("xor_probe", "filters cell Xor alpha 8 (1.15 MB plane)",
+     dict(tables=((8192, 140, 8),))),
+    ("chained_probe", f"two planes in one block, n={BIG_N}",
+     dict(tables=((2048, 100, 3), (8192, 100, 1)), n=BIG_N)),
+    ("chained_probe", "two planes in one block, n=1061",
+     dict(tables=((1024, 60, 3), (2048, 60, 1)), n=1061)),
+    ("chained_probe", "filters cell ChainedFilterAnd (860 KB of planes)",
+     dict(tables=((8192, 140, 3), (16384, 140, 1)))),
+)
+
+
 def filter_edge_cases() -> list[tuple[str, str, object]]:
     """(kernel, case name, ``filter_case`` arg) of the serving kernels."""
     cases = [("xor_probe", f"alpha={a} {m}", (a, m))
@@ -361,6 +476,36 @@ def filter_edge_cases() -> list[tuple[str, str, object]]:
     cases += [("chained_probe", c, c)
               for c in ("stage 1", "no stage 1", "eps>0")]
     cases += [("cascade_probe", f"L={n}", n) for n in CASCADE_DEPTHS]
+    return cases
+
+
+# filter_case args of the Bloomier probes, for every path; alpha 17 and 32
+# have no plane (gather only)
+XOR_ALPHAS = (1, 3, 8, 9, 16, 17, 32)
+BLOOMIER_FILTER_ARGS = (
+    [("xor_probe", f"alpha={a} fuse", (a, "fuse")) for a in XOR_ALPHAS]
+    + [("xor_probe", "alpha=8 uniform", (8, "uniform"))]
+    + [("exact_probe", f"strategy {s} {m}", s) for s, m in
+       (("a", "fuse"), ("b", "fuse"))]
+    + [("chained_probe", c, c) for c in ("stage 1", "no stage 1", "eps>0")])
+
+
+def bloomier_edge_cases() -> list[tuple[str, str, dict]]:
+    """(kernel, case name, ``check_case`` arg) of both paths of the
+    Bloomier probes (the gather kernel; the on-chip path wherever its
+    planes fit one block) on ``filter_case`` filters and
+    ``BLOOMIER_TABLE_CASES`` tables."""
+    cases = []
+    for kernel, name, arg in BLOOMIER_FILTER_ARGS:
+        cases.append((kernel, f"gather {name}", dict(arg=arg, path="gather")))
+        alpha = arg[0] if kernel == "xor_probe" else 1
+        if bloomier_onchip.field_width(alpha) is not None:
+            cases.append((kernel, f"onchip {name}",
+                          dict(arg=arg, path="onchip")))
+    for kernel, name, arg in BLOOMIER_TABLE_CASES:
+        cases.append((kernel, f"gather {name}", dict(arg, path="gather")))
+        if bloomier_plan(kernel, arg["tables"]) is not None:
+            cases.append((kernel, f"onchip {name}", dict(arg, path="onchip")))
     return cases
 
 
@@ -398,6 +543,7 @@ def edge_cases() -> list[tuple[str, str, object]]:
     cases += filter_edge_cases()
     cases += [("cascade_probe", f"L={DEEP_CASCADE} descriptor in global "
                "memory", DEEP_CASCADE)]
+    cases += bloomier_edge_cases()
     return cases
 
 
@@ -415,6 +561,11 @@ def check_case(kernel: str, arg, device, per: int = 1000) -> int:
         if "sizes" in arg:
             return check_cascade_bitmaps(device, **arg)
         return check_filter_kernel(kernel, arg["depth"], device, per,
+                                   path=arg["path"])
+    if isinstance(arg, dict) and "tables" in arg:
+        return check_bloomier_tables(kernel, device, **arg)
+    if isinstance(arg, dict):
+        return check_filter_kernel(kernel, arg["arg"], device, per,
                                    path=arg["path"])
     return check_filter_kernel(kernel, arg, device, per)
 

@@ -5,10 +5,18 @@ XOR, masked to α bits, must equal hash(fp_seed) masked alike.
 ``exact_probe`` tests a 1-bit exact Bloomier: the slot XOR's low bit must
 equal hash(bit_seed) & 1 (strategy 'a') or 1 (strategy 'b'). Each reads
 its table from word ``offset`` of a packed bank. Both are one test,
-((v ^ target) & mask) == 0, so both launch the one kernel of
-``csrc/xor_probe.cu`` with the fields ``bloomier_fields`` makes; each
-wrapper counts its own launches. On a CPU tensor they run the plain
-versions.
+((v ^ target) & mask) == 0, made from the fields ``bloomier_fields``
+makes. On a CUDA tensor each launches one of two hand-written paths and
+counts the launch, in ``launches`` and in ``onchip_launches`` or
+``gather_launches``: the on-chip path (``csrc/bloomier_onchip.cu``: the
+table's narrow plane, the low α bits of each slot, staged in every
+block's shared memory) wherever
+``bloomier_onchip.onchip_reason`` sends the probe there, the gather path
+(``csrc/xor_probe.cu``, one thread per key, three slot words read from
+the bank) elsewhere. Both give the same bits. ``plane`` is the table's
+``bloomier_onchip.pack_plane`` (packed per call where not given).
+``*_onchip`` and ``*_gather`` call one path directly. On a CPU tensor
+each runs its plain version.
 """
 from __future__ import annotations
 
@@ -17,7 +25,7 @@ import ctypes
 import torch
 
 from repro_torch.core.hashing import MASK32
-from . import _build, ref
+from . import _build, bloomier_onchip, ref
 from .common import check_probe_args
 
 _MODES = ("uniform", "fuse")
@@ -102,46 +110,132 @@ def exact_probe_ref(words, hi, lo, *, mode: str, seed: int, seg_len: int,
 
 
 # ---------------------------------------------------------------------------
-# wrappers: the CUDA kernel on a CUDA tensor, the plain version on the CPU
+# wrappers: a CUDA kernel on a CUDA tensor, the plain version on the CPU
 # ---------------------------------------------------------------------------
 
+def xor_stage(*, mode: str, seed: int, seg_len: int, n_seg: int, alpha: int,
+              fp_seed: int, offset: int = 0) -> bloomier_onchip.Stage:
+    """An α-bit Xor filter as the on-chip path takes it."""
+    return bloomier_onchip.Stage((mode, seed, seg_len, n_seg, offset), alpha,
+                                 True, fp_seed)
+
+
+def exact_stage(*, mode: str, seed: int, seg_len: int, n_seg: int,
+                strategy: str, bit_seed: int,
+                offset: int = 0) -> bloomier_onchip.Stage:
+    """An exact 1-bit Bloomier as the on-chip path takes it."""
+    a = strategy == "a"
+    return bloomier_onchip.Stage((mode, seed, seg_len, n_seg, offset), 1, a,
+                                 bit_seed if a else 1)
+
+
+def count_launch(fn, path: str) -> None:
+    """One launch of ``fn``'s ``path`` (``onchip`` or ``gather``)."""
+    fn.launches += 1
+    setattr(fn, f"{path}_launches", getattr(fn, f"{path}_launches") + 1)
+
+
 def xor_probe(words, hi, lo, *, mode: str, seed: int, seg_len: int,
-              n_seg: int, alpha: int, fp_seed: int,
-              offset: int = 0) -> torch.Tensor:
+              n_seg: int, alpha: int, fp_seed: int, offset: int = 0,
+              plane=None) -> torch.Tensor:
     """words: int32 [W] packed bank; hi/lo: int32 key lanes of any shape.
-    Returns int32 of hi's shape (1 = maybe-member)."""
+    Returns int32 of hi's shape (1 = maybe-member). On the card the
+    on-chip path serves every probe that ``bloomier_onchip.onchip_reason``
+    sends to it, the gather path every other."""
+    args = dict(mode=mode, seed=seed, seg_len=seg_len, n_seg=n_seg,
+                alpha=alpha, fp_seed=fp_seed, offset=offset)
     check_probe_args(words, hi, lo)
-    fields = xor_fields(words, mode=mode, seed=seed, seg_len=seg_len,
-                        n_seg=n_seg, offset=offset, alpha=alpha,
-                        fp_seed=fp_seed)
+    xor_fields(words, **args)
     if not words.is_cuda:
-        return xor_probe_ref(words, hi, lo, mode=mode, seed=seed,
-                             seg_len=seg_len, n_seg=n_seg, alpha=alpha,
-                             fp_seed=fp_seed, offset=offset)
+        return xor_probe_ref(words, hi, lo, **args)
+    if bloomier_onchip.stages_reason((xor_stage(**args),), hi.numel()) is None:
+        return xor_probe_onchip(words, hi, lo, **args, plane=plane)
+    return xor_probe_gather(words, hi, lo, **args)
+
+
+def xor_probe_gather(words, hi, lo, *, mode: str, seed: int, seg_len: int,
+                     n_seg: int, alpha: int, fp_seed: int,
+                     offset: int = 0) -> torch.Tensor:
+    """``xor_probe``'s gather path (``csrc/xor_probe.cu``) on any probe."""
+    args = dict(mode=mode, seed=seed, seg_len=seg_len, n_seg=n_seg,
+                alpha=alpha, fp_seed=fp_seed, offset=offset)
+    check_probe_args(words, hi, lo)
+    fields = xor_fields(words, **args)
+    if not words.is_cuda:
+        return xor_probe_ref(words, hi, lo, **args)
     out = _launch(words, hi, lo, fields)
-    xor_probe.launches += 1
+    count_launch(xor_probe, "gather")
     return out
 
 
-xor_probe.launches = 0
+def xor_probe_onchip(words, hi, lo, *, mode: str, seed: int, seg_len: int,
+                     n_seg: int, alpha: int, fp_seed: int, offset: int = 0,
+                     plane=None) -> torch.Tensor:
+    """``xor_probe``'s on-chip path (``csrc/bloomier_onchip.cu``) on any
+    probe whose plane fits one block (``bloomier_onchip.plan``). On the
+    CPU: its plain version, every slot read from the plane."""
+    args = dict(mode=mode, seed=seed, seg_len=seg_len, n_seg=n_seg,
+                alpha=alpha, fp_seed=fp_seed, offset=offset)
+    check_probe_args(words, hi, lo)
+    fields = xor_fields(words, **args)
+    out, _ = bloomier_onchip.run(
+        words, hi, lo, (xor_stage(**args),), (fields,),
+        planes=None if plane is None else (plane,), what="xor_probe")
+    if words.is_cuda:
+        count_launch(xor_probe, "onchip")
+    return out
 
 
 def exact_probe(words, hi, lo, *, mode: str, seed: int, seg_len: int,
-                n_seg: int, strategy: str, bit_seed: int,
-                offset: int = 0) -> torch.Tensor:
-    """Exact 1-bit Bloomier probe -> int32 of hi's shape (1 = member)."""
+                n_seg: int, strategy: str, bit_seed: int, offset: int = 0,
+                plane=None) -> torch.Tensor:
+    """Exact 1-bit Bloomier probe -> int32 of hi's shape (1 = member); the
+    path as ``xor_probe`` picks it."""
+    args = dict(mode=mode, seed=seed, seg_len=seg_len, n_seg=n_seg,
+                strategy=strategy, bit_seed=bit_seed, offset=offset)
     check_probe_args(words, hi, lo)
-    fields = exact_fields(words, mode=mode, seed=seed, seg_len=seg_len,
-                          n_seg=n_seg, offset=offset, strategy=strategy,
-                          bit_seed=bit_seed)
+    exact_fields(words, **args)
     if not words.is_cuda:
-        return exact_probe_ref(words, hi, lo, mode=mode, seed=seed,
-                               seg_len=seg_len, n_seg=n_seg,
-                               strategy=strategy, bit_seed=bit_seed,
-                               offset=offset)
+        return exact_probe_ref(words, hi, lo, **args)
+    if bloomier_onchip.stages_reason((exact_stage(**args),),
+                                     hi.numel()) is None:
+        return exact_probe_onchip(words, hi, lo, **args, plane=plane)
+    return exact_probe_gather(words, hi, lo, **args)
+
+
+def exact_probe_gather(words, hi, lo, *, mode: str, seed: int, seg_len: int,
+                       n_seg: int, strategy: str, bit_seed: int,
+                       offset: int = 0) -> torch.Tensor:
+    """``exact_probe``'s gather path (``csrc/xor_probe.cu``) on any probe."""
+    args = dict(mode=mode, seed=seed, seg_len=seg_len, n_seg=n_seg,
+                strategy=strategy, bit_seed=bit_seed, offset=offset)
+    check_probe_args(words, hi, lo)
+    fields = exact_fields(words, **args)
+    if not words.is_cuda:
+        return exact_probe_ref(words, hi, lo, **args)
     out = _launch(words, hi, lo, fields)
-    exact_probe.launches += 1
+    count_launch(exact_probe, "gather")
     return out
 
 
-exact_probe.launches = 0
+def exact_probe_onchip(words, hi, lo, *, mode: str, seed: int, seg_len: int,
+                       n_seg: int, strategy: str, bit_seed: int,
+                       offset: int = 0, plane=None) -> torch.Tensor:
+    """``exact_probe``'s on-chip path on any probe whose plane fits one
+    block (``bloomier_onchip.plan``). On the CPU: its plain version, every
+    slot read from the plane."""
+    args = dict(mode=mode, seed=seed, seg_len=seg_len, n_seg=n_seg,
+                strategy=strategy, bit_seed=bit_seed, offset=offset)
+    check_probe_args(words, hi, lo)
+    fields = exact_fields(words, **args)
+    out, _ = bloomier_onchip.run(
+        words, hi, lo, (exact_stage(**args),), (fields,),
+        planes=None if plane is None else (plane,), what="exact_probe")
+    if words.is_cuda:
+        count_launch(exact_probe, "onchip")
+    return out
+
+
+# launches of either path, and of each
+for _fn in (xor_probe, exact_probe):
+    _fn.launches = _fn.onchip_launches = _fn.gather_launches = 0

@@ -20,8 +20,10 @@ Paper mapping
   ``xor_probe``, ``exact_probe``, ``chained_probe`` (both stages, probes
   = 1 + stage-1 pass) and ``cascade_probe`` (every layer and the
   first-zero parity rule in one launch, probes = min(first_zero, L)). A
-  cascade's int32 layer descriptor is built once per published
-  ``BankState``, not per probe.
+  cascade's int32 layer descriptor, and the narrow planes (the low α bits
+  of each slot) of the Xor, exact and ChainedFilterAnd tables that the
+  Bloomier kernels' on-chip path reads, are built once per published
+  ``BankState`` from its contents, not per probe.
 
 The service runs on one device. The JAX package splits key rows across
 devices with ``shard_map``; a multi-GPU row split is still to be ported
@@ -44,7 +46,7 @@ from repro_torch.core.tables import (BloomTable, XorTable, ExactTable,
                                      OthelloTable, ChainedAndLayout,
                                      CascadeLayout, LsmChainLayout,
                                      concat_tables)
-from repro_torch.kernels import common
+from repro_torch.kernels import bloomier_onchip, common
 from repro_torch.kernels.bloom_probe import bloom_probe
 from repro_torch.kernels.cascade_probe import cascade_descriptors, cascade_probe
 from repro_torch.kernels.chained_probe import chained_probe
@@ -107,9 +109,44 @@ def layout_descriptors(layouts: tuple, device) -> tuple:
         if isinstance(lay, CascadeLayout) else None for lay in layouts)
 
 
-def _probe_one(tables, hi, lo, lay, desc) -> tuple[torch.Tensor, torch.Tensor]:
+def _table(lay) -> tuple:
+    return (lay.mode, lay.seed, lay.seg_len, lay.n_seg, lay.offset)
+
+
+def _stage_planes(tables, stages: tuple) -> tuple | None:
+    """The planes of (layout, α) stages, or None where one has none."""
+    if any(bloomier_onchip.field_width(a) is None for _, a in stages):
+        return None
+    return tuple(bloomier_onchip.pack_plane(tables, _table(t), a)
+                 for t, a in stages)
+
+
+def layout_planes(layouts: tuple, tables: torch.Tensor) -> tuple:
+    """The narrow planes (``bloomier_onchip.pack_plane``) each layout's
+    Bloomier kernel reads from the device bank ``tables``, aligned with
+    ``layouts``: a tuple of one plane a stage for an Xor (α ≤ 16), exact
+    or ChainedFilterAnd table, None for any other. Planes hold table
+    contents: a bank with new contents needs new planes."""
+    out = []
+    for lay in layouts:
+        if isinstance(lay, XorTable):
+            out.append(_stage_planes(tables, ((lay, lay.alpha),)))
+        elif isinstance(lay, ExactTable):
+            out.append(_stage_planes(tables, ((lay, 1),)))
+        elif isinstance(lay, ChainedAndLayout):
+            stages = ((lay.exact, 1),) if lay.xor is None else (
+                (lay.xor, lay.xor.alpha), (lay.exact, 1))
+            out.append(_stage_planes(tables, stages))
+        else:
+            out.append(None)
+    return tuple(out)
+
+
+def _probe_one(tables, hi, lo, lay, desc, planes=None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
     """-> (member, probes) int32 of hi's shape for one filter layout;
-    ``desc`` is its ``layout_descriptors`` entry."""
+    ``desc`` is its ``layout_descriptors`` entry, ``planes`` its
+    ``layout_planes`` entry."""
     if isinstance(lay, BloomTable):
         m = bloom_probe(tables, hi, lo, m_bits=lay.m_bits, k=lay.k,
                         seed=lay.seed, offset=lay.offset)
@@ -117,13 +154,15 @@ def _probe_one(tables, hi, lo, lay, desc) -> tuple[torch.Tensor, torch.Tensor]:
     if isinstance(lay, XorTable):
         m = xor_probe(tables, hi, lo, mode=lay.mode, seed=lay.seed,
                       seg_len=lay.seg_len, n_seg=lay.n_seg, alpha=lay.alpha,
-                      fp_seed=lay.fp_seed, offset=lay.offset)
+                      fp_seed=lay.fp_seed, offset=lay.offset,
+                      plane=None if planes is None else planes[0])
         return m, torch.ones_like(m)
     if isinstance(lay, ExactTable):
         m = exact_probe(tables, hi, lo, mode=lay.mode, seed=lay.seed,
                         seg_len=lay.seg_len, n_seg=lay.n_seg,
                         strategy=lay.strategy, bit_seed=lay.bit_seed,
-                        offset=lay.offset)
+                        offset=lay.offset,
+                        plane=None if planes is None else planes[0])
         return m, torch.ones_like(m)
     if isinstance(lay, OthelloTable):
         m = othello_hit(tables, hi, lo, ma=lay.ma, mb=lay.mb, seed=lay.seed,
@@ -133,20 +172,24 @@ def _probe_one(tables, hi, lo, lay, desc) -> tuple[torch.Tensor, torch.Tensor]:
     if isinstance(lay, LsmChainLayout):
         return lsm_chain_probe(tables, hi, lo, chain=lay.probe_params())
     if isinstance(lay, ChainedAndLayout):
-        return chained_probe(tables, hi, lo, **chained_and_params(lay))
+        return chained_probe(tables, hi, lo, **chained_and_params(lay),
+                             planes=planes)
     if isinstance(lay, CascadeLayout):
         return cascade_probe(tables, hi, lo, desc, layers=lay.probe_params())
     raise TypeError(f"unknown filter layout {type(lay).__name__}")
 
 
-def bank_probe(tables, hi, lo, *, layouts: tuple, descs: tuple
+def bank_probe(tables, hi, lo, *, layouts: tuple, descs: tuple,
+               planes: tuple | None = None
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Probe every filter in the bank on one key batch; ``descs`` are the
-    layouts' ``layout_descriptors`` on the bank's device.
-    -> (member, probes) int32 [F, *hi.shape]."""
+    layouts' ``layout_descriptors`` on the bank's device, ``planes`` their
+    ``layout_planes`` of this bank (None: packed per call where a probe
+    takes the on-chip path). -> (member, probes) int32 [F, *hi.shape]."""
     members, probes = [], []
-    for lay, desc in zip(layouts, descs):
-        m, p = _probe_one(tables, hi, lo, lay, desc)
+    planes = (None,) * len(layouts) if planes is None else planes
+    for lay, desc, pl in zip(layouts, descs, planes):
+        m, p = _probe_one(tables, hi, lo, lay, desc, pl)
         members.append(m)
         probes.append(p)
     return torch.stack(members), torch.stack(probes)
@@ -159,7 +202,8 @@ def bank_probe(tables, hi, lo, *, layouts: tuple, descs: tuple
 @dataclass(frozen=True)
 class BankState:
     """One immutable published bank version: the packed buffer, its
-    layouts and its device tensor, swapped as a UNIT. A reader that
+    layouts, its device tensor and the device buffers derived from them,
+    swapped as a UNIT. A reader that
     captured a ``BankState`` keeps probing it bit-identically no matter how
     many newer versions publish after it."""
 
@@ -167,6 +211,7 @@ class BankState:
     tables: torch.Tensor               # int32 [W] on the service's device
     version: int                       # monotonically increasing
     descs: tuple                       # layout_descriptors(bank.layouts)
+    planes: tuple                      # layout_planes(bank.layouts, tables)
 
     @property
     def n_filters(self) -> int:
@@ -234,11 +279,13 @@ class FilterService:
         bank.tables.setflags(write=False)      # immutable once staged
         tables = common.to_device(bank.tables, self.device)
         descs = layout_descriptors(bank.layouts, self.device)
+        planes = layout_planes(bank.layouts, tables)
         if warm:
             z = torch.zeros(common.BLOCK, dtype=torch.int32, device=self.device)
-            bank_probe(tables, z, z, layouts=bank.layouts, descs=descs)
+            bank_probe(tables, z, z, layouts=bank.layouts, descs=descs,
+                       planes=planes)
         return BankState(bank=bank, tables=tables, version=self.version + 1,
-                         descs=descs)
+                         descs=descs, planes=planes)
 
     def publish(self, state: BankState) -> None:
         """Atomically install a staged state as the serving bank — the
@@ -272,7 +319,7 @@ class FilterService:
         hi, lo = common.key_lanes(keys, self.device)
         member, probes = bank_probe(state.tables, hi, lo,
                                     layouts=state.bank.layouts,
-                                    descs=state.descs)
+                                    descs=state.descs, planes=state.planes)
         member = member.cpu().numpy().astype(bool)
         probes = probes.cpu().numpy()
         if current:
@@ -290,7 +337,7 @@ class FilterService:
         state = self._state
         hi, lo = common.key_lanes(keys, self.device)
         member, _ = _probe_one(state.tables, hi, lo, state.bank.layouts[index],
-                               state.descs[index])
+                               state.descs[index], state.planes[index])
         return member.cpu().numpy().astype(bool)
 
     def refresh_tables(self, filters: list) -> None:
@@ -301,16 +348,18 @@ class FilterService:
         which is where batched Othello exclusions materialize their lazily
         flipped components. The previous state's buffer is never touched:
         readers pinned to it keep probing the old contents. The layouts'
-        device descriptors carry over. Stats are kept (content-only
+        device descriptors carry over; the narrow planes hold contents and
+        are packed anew from the new buffer. Stats are kept (content-only
         refresh)."""
         old = self._state
         bank = FilterBank.pack(filters)
         if bank.layouts != old.bank.layouts:
             raise ValueError("filter layouts changed; build a new FilterService")
         bank.tables.setflags(write=False)
-        state = BankState(bank=bank,
-                          tables=common.to_device(bank.tables, self.device),
-                          version=old.version + 1, descs=old.descs)
+        tables = common.to_device(bank.tables, self.device)
+        state = BankState(bank=bank, tables=tables, version=old.version + 1,
+                          descs=old.descs,
+                          planes=layout_planes(bank.layouts, tables))
         with self._swap_lock:
             self._state = state
 

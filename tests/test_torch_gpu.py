@@ -14,8 +14,8 @@ from repro_torch.core.bloom import BloomFilter  # noqa: E402
 from repro_torch.core.bloomier import ExactBloomier, XorFilter  # noqa: E402
 from repro_torch.core.chained import (ChainedFilterAnd,  # noqa: E402
                                       ChainedFilterCascade)
-from repro_torch.kernels import (bloom_onchip, common, lsm_window,  # noqa: E402
-                                 ops, selfcheck)
+from repro_torch.kernels import (bloom_onchip, bloomier_onchip,  # noqa: E402
+                                 common, lsm_window, ops, selfcheck)
 from repro_torch.kernels.bloom_probe import (bloom_probe,  # noqa: E402
                                              bloom_probe_onchip)
 from repro_torch.kernels.cascade_probe import (cascade_descriptors,  # noqa: E402
@@ -142,6 +142,63 @@ def test_bloom_path_counters_follow_the_onchip_rule(cuda):
             with pytest.raises(ValueError):
                 cascade_probe_onchip(bank, hi, lo, desc, layers=layers)
     assert taken == {True, False}
+    torch.cuda.synchronize()
+
+
+def test_bloomier_path_counters_follow_the_onchip_rule(cuda):
+    B = bloomier_onchip
+    # (kernel, tables, keys): a plane that fits one block under and at
+    # MIN_KEYS keys, two chained planes in one block, planes over one block
+    cases = [("exact_probe", ((16384, 106, 1),), B.MIN_KEYS - 1),
+             ("exact_probe", ((16384, 106, 1),), B.MIN_KEYS),
+             ("chained_probe", ((2048, 100, 3), (8192, 100, 1)), B.MIN_KEYS),
+             ("xor_probe", ((8192, 140, 8),), B.MIN_KEYS),
+             ("chained_probe", ((8192, 140, 3), (16384, 140, 1)),
+              B.MIN_KEYS)]
+    taken = set()
+    for kernel, tables, n in cases:
+        bank, a = selfcheck.synthetic_bloomier(kernel, tables)
+        words = common.to_device(bank, cuda)
+        hi, lo = common.key_lanes(H.random_keys(n, seed=8), cuda)
+        fits = selfcheck.bloomier_plan(kernel, tables) is not None
+        onchip = fits and n >= B.MIN_KEYS
+        taken.add(onchip)
+        counter = KERNELS[kernel]
+        before = (counter.onchip_launches, counter.gather_launches)
+        kern, plain = selfcheck.bloomier_calls(kernel, a, words)
+        for g, w in zip(kern(hi, lo), plain(hi, lo)):
+            assert torch.equal(g, w)
+        assert (counter.onchip_launches - before[0],
+                counter.gather_launches - before[1]) == \
+            ((1, 0) if onchip else (0, 1)), (kernel, tables, n)
+        if not fits:                  # the on-chip entry point refuses
+            with pytest.raises(ValueError):
+                selfcheck.bloomier_calls(kernel, a, words, "onchip")[0](hi, lo)
+    assert taken == {True, False}
+    torch.cuda.synchronize()
+
+
+def test_filter_service_planes_on_card(cuda):
+    """The service's planes live on the card; a probe of MIN_KEYS queries
+    takes exact_probe's on-chip path with them and agrees with the CPU
+    service, before and after refresh_tables."""
+    keys = H.random_keys(60_000, seed=9)
+    pos, neg = keys[:5000], keys[5000:45_000]
+    filters = [XorFilter.build(pos, 8, seed=12),
+               ExactBloomier.build(pos[:2500], neg[:5000], seed=13),
+               ChainedFilterAnd.build(pos, neg, seed=14)]
+    q = np.random.default_rng(7).choice(keys, bloomier_onchip.MIN_KEYS)
+    gpu, cpu = (FilterService(filters, device=d) for d in (cuda, "cpu"))
+    assert all(p.words.is_cuda for pl in gpu.state.planes for p in pl)
+    before = exact_probe.onchip_launches
+    for g, w in zip(gpu.probe(q), cpu.probe(q)):
+        np.testing.assert_array_equal(g, w)
+    assert exact_probe.onchip_launches == before + 1
+    filters[0].tbl.table[:] ^= np.uint32(1)       # new contents
+    gpu.refresh_tables(filters)
+    cpu.refresh_tables(filters)
+    for g, w in zip(gpu.probe(q), cpu.probe(q)):
+        np.testing.assert_array_equal(g, w)
     torch.cuda.synchronize()
 
 
