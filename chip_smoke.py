@@ -77,6 +77,21 @@ Phases, one line each; any failure exits non-zero and prints no result:
              keys (the cell's exact table, an Xor plane and two chained
              planes that fit one block); host-clock times of get_batch and
              of both FilterService banks' probes
+9. query     the query layer and the prefix cache (``query_cell``,
+             ``prefix_cache_cell``): ``benchmarks/query_pipeline.py``'s
+             cell built with the port at its full scale (``events``,
+             2^19 keys in 4 flushes with a 4-bit tag index; 2^18
+             candidates through TagEq, RangeFence, TagIn, Member; a
+             semijoin into ``orders``), fused == naive == a dict model,
+             host-clock medians and the split of one fused run; the same
+             at CI scale, reproducing BENCH_baseline.json's four counts
+             exactly; a Member plan over the main store (wrapped by
+             ``Catalog.create_collection(store=...)``, nothing rebuilt)
+             == ``get_batch`` by one window-path launch, and a
+             scan-driven plan == the snapshot's scan; the prefix cache at
+             the engine's default tiers (8 / 32 / 128 entries), 400
+             inserts and 4,096 lookups, ``lookup_batch`` == ``lookup``
+             and the stats equal, its ``bloom_probe`` launches by path
 
 Then one JSON line of kernel records, the card line and the result line.
 Launch counts are set to 0 just before each path is driven and read just
@@ -165,6 +180,229 @@ def bound(n_bytes: float, n_ops: float, int32_per_s: float) -> tuple[float, str]
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+# -- phase 9: the query layer (benchmarks/query_pipeline.py, with the port) --
+Q_TAG_BITS = 4
+Q_FULL, Q_CI = (1 << 19, 1 << 18), (1 << 15, 1 << 15)   # (keys, candidates)
+Q_BASELINE = ("query_pipeline (filter-pushdown query plans)",
+              ("survivor_reduction_frac", "semijoin_candidate_reduction",
+               "semijoin_matched", "crosscheck_match"))
+# the engine's default tiers (name, entries, probe cost in us)
+PC_TIERS = (("hbm", 8, 1.0), ("dram", 32, 10.0), ("ssd", 128, 150.0))
+
+
+def q_tag_fn(keys, vals):
+    return vals & np.uint64((1 << Q_TAG_BITS) - 1)
+
+
+def q_collection(cat, name, keys, vals, n_tables, seed, device):
+    """A chained collection with a ``tags`` index, ``keys`` in
+    ``n_tables`` flushes (as the benchmark builds it)."""
+    coll = cat.create_collection(name, filter_kind="chained", seed=seed,
+                                 memtable_capacity=2 ** 62,
+                                 auto_compact=False, device=device)
+    coll.create_index("tags", q_tag_fn, tag_bits=Q_TAG_BITS)
+    per = max(1, len(keys) // n_tables)
+    for i in range(n_tables):
+        ks = keys[i * per:(i + 1) * per] if i < n_tables - 1 \
+            else keys[i * per:]
+        coll.store.put_batch(ks, vals[i * per:i * per + len(ks)])
+        coll.store.flush()
+    return coll
+
+
+def q_naive(view, stages, cands):
+    """No pushdown: every predicate over all candidates, one resolution of
+    all of them, the masks ANDed at the end."""
+    from repro_torch.query import Member
+    from repro_torch.query.pipeline import predicate_mask
+    keep = None
+    for stage in stages:
+        if not isinstance(stage, Member):
+            m = predicate_mask(view, stage, cands)
+            keep = m if keep is None else keep & m
+    found, vals, _ = view.snap.get_batch(cands)
+    keep = found if keep is None else keep & found
+    return cands[keep], vals[keep]
+
+
+def q_model_match(keys, vals, stages, cands, got_keys, got_vals) -> bool:
+    """The same conjunctive plan over a dict of the collection's rows."""
+    from repro_torch.query import RangeFence, TagEq, TagIn
+    data = dict(zip(keys.tolist(), vals.tolist()))
+    got = np.array([data.get(int(k)) is not None for k in cands])
+    cvals = np.array([data.get(int(k), 0) for k in cands], dtype=np.uint64)
+    keep = got.copy()
+    for stage in stages:
+        if isinstance(stage, RangeFence):
+            keep &= ((cands >= np.uint64(stage.lo))
+                     & (cands < np.uint64(stage.hi)))
+        elif isinstance(stage, TagEq):
+            keep &= q_tag_fn(cands, cvals) == np.uint64(stage.tag)
+        elif isinstance(stage, TagIn):
+            keep &= np.isin(q_tag_fn(cands, cvals),
+                            np.asarray(stage.tags, np.uint64))
+    return (np.array_equal(got_keys, cands[keep])
+            and np.array_equal(got_vals, cvals[keep]))
+
+
+def query_cell(n_keys: int, n_cands: int, device, *, repeat: int = 3,
+               reset=lambda: None, read=dict, profile=None) -> dict:
+    """The query cell of ``benchmarks/query_pipeline.py`` built with the
+    port on ``device``: ``events`` (``n_keys`` keys in 4 flushes, a 4-bit
+    ``tags`` index), ``n_cands`` candidates (half present), the 4-stage
+    plan fused and naive, and a semijoin into ``orders`` (every 4th key,
+    2 flushes) with a tag predicate pushed down. ``reset()`` is called
+    just before the fused plan and the semijoin run once each, ``read()``
+    just after; the result holds the benchmark's four counts, the naive
+    and dict-model verdicts, host-clock medians, the split of one fused
+    run and, given ``profile``, what it reports of one more."""
+    from repro_torch.query import (Catalog, JoinStep, Member, Pipeline,
+                                   RangeFence, SemiJoin, TagEq, TagIn)
+    rng = np.random.default_rng(7)
+    keys = rng.choice(np.uint64(2 ** 62), size=n_keys, replace=False
+                      ).astype(np.uint64)
+    vals = rng.integers(1, 2 ** 60, n_keys, dtype=np.uint64)
+    t0 = time.perf_counter()
+    cat = Catalog()
+    coll = q_collection(cat, "events", keys, vals, 4, 3, device)
+    build_s = time.perf_counter() - t0
+    present = rng.choice(keys, size=n_cands // 2)
+    absent = rng.integers(1, 2 ** 62, n_cands - len(present),
+                          dtype=np.uint64)
+    cands = np.concatenate([present, absent])
+    rng.shuffle(cands)
+    ks = np.sort(keys)
+    lo, hi = int(ks[len(ks) // 4]), int(ks[3 * len(ks) // 4])
+    stages = (TagEq("tags", 3), RangeFence(lo, hi), TagIn("tags", (1, 3, 5)),
+              Member())
+    out = {"build_s": build_s,
+           "bank_bytes": coll.store.generation.tables.nbytes,
+           "filter_bits": coll.store.filter_bits,
+           "tag_bank_bytes": coll.indexes["tags"].service.bank.nbytes}
+    with Pipeline(coll, stages).open() as ex:
+        ex.run(cands)                                   # warm
+        reset()
+        res = ex.run(cands)
+        out["fused_launches"] = read()
+        fused, naive = [], []
+        for _ in range(repeat):
+            t = time.perf_counter()
+            res = ex.run(cands)
+            fused.append(time.perf_counter() - t)
+            t = time.perf_counter()
+            naive_k, naive_v = q_naive(ex.view, stages, cands)
+            naive.append(time.perf_counter() - t)
+        out["fused_ms"] = 1e3 * statistics.median(fused)
+        out["naive_ms"] = 1e3 * statistics.median(naive)
+        out["naive_equal"] = bool(np.array_equal(res.keys, naive_k)
+                                  and np.array_equal(res.vals, naive_v))
+        out["split_ms"] = q_split(ex, coll, cands)
+        if profile is not None:
+            out["profile"] = profile(lambda: ex.run(cands))
+    out["model_match"] = q_model_match(keys, vals, stages, cands, res.keys,
+                                       res.vals)
+    entry = [res.n_candidates] + [n for _, n in res.stage_survivors[:-1]]
+    orders = q_collection(cat, "orders", keys[::4],
+                          vals[::4] + np.uint64(1), 2, 11, device)
+    sj = SemiJoin(Pipeline(coll, (Member(),)),
+                  (JoinStep(orders, stages=(TagIn("tags", (2, 4, 6, 8)),)),))
+    reset()
+    sj_stats = sj.run(cands).step_stats[0]
+    out["semijoin_launches"] = read()
+    out["stage_survivors"] = res.stage_survivors
+    out["counts"] = {
+        "survivor_reduction_frac":
+            1.0 - sum(entry) / (len(stages) * res.n_candidates),
+        "semijoin_candidate_reduction": float(sj_stats["reduction"]),
+        "semijoin_matched": int(sj_stats["matched"]),
+        "crosscheck_match": float(out["model_match"])}
+    return out
+
+
+def q_split(ex, coll, cands) -> dict:
+    """Host ms of one fused run of the open plan ``ex``, split into the
+    memtable overlay, the tag-bank probes (``FilterService.probe``), the
+    membership resolution (``Snapshot.get_batch``) and the rest (numpy
+    gathers and masks), by timing those calls in place."""
+    spent = {"overlay": 0.0, "tag_bank_probe": 0.0, "get_batch": 0.0}
+
+    def timed(obj, attr, part):
+        fn = getattr(obj, attr)
+
+        def wrapper(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[part] += time.perf_counter() - t
+        setattr(obj, attr, wrapper)
+
+    snap, svc = ex.view.snap, coll.indexes["tags"].service
+    timed(snap, "memtable_probe", "overlay")
+    timed(svc, "probe", "tag_bank_probe")
+    timed(snap, "get_batch", "get_batch")
+    try:
+        t = time.perf_counter()
+        ex.run(cands)
+        total = time.perf_counter() - t
+    finally:
+        for obj, attr in ((snap, "memtable_probe"), (svc, "probe"),
+                          (snap, "get_batch")):
+            delattr(obj, attr)
+    out = {k: 1e3 * v for k, v in spent.items()}
+    out["numpy"] = 1e3 * total - sum(out.values())
+    out["total"] = 1e3 * total
+    return out
+
+
+def prefix_cache_cell(device, *, n_inserts: int = 400, n_lookups: int = 4096,
+                      seed: int = 5, reset=lambda: None, read=dict) -> dict:
+    """Two caches at the engine's default tiers take the same seeded
+    stream: half the inserts, half the lookups, the other half of the
+    inserts (so the bank is re-packed by ``refresh_tables``), the other
+    half of the lookups. One looks up by ``lookup_batch`` (``reset()`` /
+    ``read()`` around both batches), its twin key by key (``lookup``).
+    Half the looked-up keys were inserted, half never were."""
+    from repro_torch.serving import TieredPrefixCache, TierSpec
+    tiers = [TierSpec(*t) for t in PC_TIERS]
+    rng = np.random.default_rng(seed)
+    ins = rng.integers(1, 2 ** 62, n_inserts, dtype=np.uint64)
+    look = np.concatenate([rng.choice(ins, n_lookups // 2),
+                           rng.integers(2 ** 62, 2 ** 63,
+                                        n_lookups - n_lookups // 2,
+                                        dtype=np.uint64)])
+    rng.shuffle(look)
+    batched = TieredPrefixCache(tiers, seed=seed, device=device)
+    single = TieredPrefixCache(tiers, seed=seed, device=device)
+    got, want, versions, launches = [], [], [], []
+    t_ins = t_batch = 0.0
+    for part in range(2):
+        sl = slice(part * n_inserts // 2, (part + 1) * n_inserts // 2)
+        t = time.perf_counter()
+        for i, k in zip(range(sl.start, sl.stop), ins[sl].tolist()):
+            batched.insert(k, payload=i)
+            single.insert(k, payload=i)
+        t_ins += time.perf_counter() - t
+        q = look[part * n_lookups // 2:(part + 1) * n_lookups // 2].tolist()
+        reset()
+        t = time.perf_counter()
+        got += batched.lookup_batch(q)
+        t_batch += time.perf_counter() - t
+        launches.append(read())
+        versions.append(batched._service.version)
+        want += [single.lookup(k) for k in q]
+    sa, sb = batched.stats(), single.stats()
+    sb["batched_lookups"] = sa["batched_lookups"]
+    return {"equal": got == want, "stats_equal": sa == sb, "stats": sa,
+            "hits": sum(p is not None for p, _ in got),
+            "versions": versions, "launches": launches,
+            "service": batched._service,
+            "overflowed": all(len(s) == t.capacity
+                              for s, t in zip(batched.store, tiers)),
+            "insert_ms": 1e3 * t_ins, "lookup_batch_ms": 1e3 * t_batch,
+            "n_lookups": n_lookups, "n_inserts": n_inserts}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -198,6 +436,7 @@ def main() -> None:
             exact_probe, exact_probe_gather, exact_probe_onchip,
             exact_probe_ref, xor_probe, xor_probe_gather, xor_probe_onchip,
             xor_probe_ref)
+        from repro_torch.query import Catalog, Member, Pipeline, RangeFence
         from repro_torch.serving.filter_service import (FilterService,
                                                         bank_probe,
                                                         layout_planes)
@@ -1241,6 +1480,166 @@ def main() -> None:
           f"{f_probe_ms - f_lanes_ms - f_launch_ms:.1f} ms, device busy "
           f"{100 * bank_ms / f_probe_ms:.1f}% | {card} | total "
           f"{time.monotonic() - t_start:.0f} s", flush=True)
+
+    # -- 9. query: the query layer and the prefix cache --------------------
+    def device_profile(fn):
+        """(device ms, device operations: kernels and copies) of one call
+        of ``fn`` (torch.profiler), or why not measured."""
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            rows = [(e.self_device_time_total, e.count)
+                    for e in prof.key_averages()
+                    if e.self_device_time_total > 0]
+        except Exception as exc:          # the profiler is optional here
+            return f"not measured ({exc})"
+        return sum(us for us, _ in rows) / 1e3, sum(c for _, c in rows)
+
+    def busy(prof, call_ms: float) -> str:
+        """The device's share of a call of ``call_ms`` host ms (timed
+        without the profiler)."""
+        if isinstance(prof, str):
+            return prof
+        dev_ms, ops = prof
+        return (f"{dev_ms:.3f} ms of device time in {ops} device "
+                f"operations (kernels and copies), device busy "
+                f"{100 * dev_ms / call_ms:.1f}% of a {call_ms:.1f} ms call")
+
+    def lsm_launches() -> dict:
+        return {"lsm_probe": lsm_probe.launches, **path_counts()}
+
+    def bloom_launches() -> dict:
+        return {"bloom_probe": bloom_probe.launches,
+                **bloom_paths(bloom_probe)}
+
+    q9 = {"lsm_probe": 0, "bloom_probe": 0, "bloom_gather": 0}
+    # the query cell at the repo's full scale: the fused plan's Member
+    # stage is one lsm_probe launch; the semijoin's are three (the base
+    # plan's resolution, the bank prune of orders, its materialization);
+    # 4 tables take the gather path. Tag banks are Othello planes that
+    # FilterService serves with torch ops (othello_hit), no kernel.
+    q = query_cell(*Q_FULL, dev, repeat=5, reset=reset_counts,
+                   read=lsm_launches, profile=device_profile)
+    check(q["naive_equal"], "query cell: the fused plan != the naive plan")
+    check(q["model_match"], "query cell: the fused plan != the dict model")
+    check(q["fused_launches"] == {"lsm_probe": 1, "window": 0, "gather": 1},
+          f"query cell: the fused plan launched {q['fused_launches']}")
+    check(q["semijoin_launches"] == {"lsm_probe": 3, "window": 0,
+                                     "gather": 3},
+          f"query cell: the semijoin launched {q['semijoin_launches']}")
+    q9["lsm_probe"] += 4
+    sp = q["split_ms"]
+    print(f"query: events {Q_FULL[0]} keys in 4 flushes, host build "
+          f"{q['build_s']:.1f} s (chained bank {q['bank_bytes']} B packed, "
+          f"{q['filter_bits'] / Q_FULL[0]:.2f} filter bits a key; "
+          f"{Q_TAG_BITS} tag planes {q['tag_bank_bytes']} B: a path check, "
+          f"not a load test) | {Q_FULL[1]} candidates through "
+          f"{[s for s, _ in q['stage_survivors']]}, survivors "
+          f"{[n for _, n in q['stage_survivors']]}: fused == naive == dict "
+          f"model | counts {json.dumps(q['counts'])} | lsm_probe launches "
+          f"by path: fused plan {q['fused_launches']}, semijoin "
+          f"{q['semijoin_launches']} | host clock, median of 5: fused "
+          f"{q['fused_ms']:.1f} ms, naive {q['naive_ms']:.1f} ms "
+          f"({q['naive_ms'] / q['fused_ms']:.2f}x) | one fused run "
+          f"{sp['total']:.1f} ms: memtable overlay {sp['overlay']:.2f}, "
+          f"tag-bank probes (FilterService.probe) {sp['tag_bank_probe']:.1f}"
+          f", get_batch {sp['get_batch']:.1f}, numpy gathers "
+          f"{sp['numpy']:.1f} | one more, profiled: "
+          f"{busy(q['profile'], q['fused_ms'])} | {card}", flush=True)
+    # the same cell at CI scale: BENCH_baseline.json's counts, exactly
+    with open(os.path.join(ROOT, "BENCH_baseline.json")) as fh:
+        base = json.load(fh)[Q_BASELINE[0]]["metrics"]
+    want = {k: base[k] for k in Q_BASELINE[1]}
+    qc = query_cell(*Q_CI, dev, repeat=1)
+    check(qc["counts"] == want, f"query cell at CI scale: counts "
+          f"{qc['counts']}, BENCH_baseline.json {want}")
+    check(qc["naive_equal"] and qc["model_match"],
+          "query cell at CI scale: fused != naive or the dict model")
+    print(f"query CI scale: {Q_CI[0]} keys, {Q_CI[1]} candidates: counts "
+          f"{json.dumps(qc['counts'])} == BENCH_baseline.json", flush=True)
+    # a Member plan over the main cell's store, wrapped as it stands
+    published = store.stats.generations_published
+    main_cat = Catalog()
+    mcoll = main_cat.create_collection("main", store=store)
+    check(store.generation is gen
+          and store.stats.generations_published == published,
+          "wrapping the main store published a generation")
+    plan = Pipeline(mcoll, (Member(),))
+    reset_counts()
+    res = plan.run(exist)
+    m_launch = lsm_launches()
+    f_x, v_x, r_x = store.get_batch(exist)
+    check(m_launch == {"lsm_probe": 1, "window": 1, "gather": 0},
+          f"the main store's Member plan launched {m_launch}")
+    check(np.array_equal(res.keys, exist[f_x])
+          and np.array_equal(res.vals, v_x[f_x])
+          and np.array_equal(res.reads, r_x),
+          "the main store's Member plan != get_batch")
+    ss = np.sort(stored)
+    lo_k, hi_k = int(ss[len(ss) // 2]), int(ss[len(ss) // 2 + 10_000])
+    reset_counts()
+    sres = Pipeline(mcoll, (RangeFence(lo_k, hi_k), Member())).run()
+    s_launch = lsm_launches()
+    with store.snapshot() as snap:
+        sk, sv = snap.scan(lo_k, hi_k)
+    check(np.array_equal(sres.keys, sk) and np.array_equal(sres.vals, sv)
+          and len(sk) == 10_000 and bool((sres.reads == 1).all()),
+          "the scan-driven plan != the snapshot's scan")
+    check(s_launch == {"lsm_probe": 1, "window": 0, "gather": 1},
+          f"the scan-driven plan launched {s_launch}")
+    q9["lsm_probe"] += 2
+    plan_ms = host_ms(lambda: plan.run(exist))
+    get2_ms = host_ms(lambda: store.get_batch(exist))
+    plan_prof = device_profile(lambda: plan.run(exist))
+    main_cat.drop_collection("main")
+    print(f"query main store: Member plan over {len(exist)} keys of the "
+          f"{n_fl}-table store == get_batch (keys, vals, reads), lsm_probe "
+          f"by path {m_launch}; host clock {plan_ms:.1f} ms against "
+          f"get_batch {get2_ms:.1f} ms; one plan, profiled: "
+          f"{busy(plan_prof, plan_ms)} | "
+          f"(RangeFence, Member) over "
+          f"{len(sk)} keys == the snapshot's scan, reads 1 each, lsm_probe "
+          f"by path {s_launch} | {card}", flush=True)
+    # the prefix cache at the engine's default tiers
+    pc = prefix_cache_cell(dev, reset=reset_counts, read=bloom_launches)
+    pstate = pc["service"].state
+    pc_rule = rule_paths([((lay.m_bits, lay.k, lay.seed, lay.offset),)
+                          for lay in pstate.bank.layouts],
+                         pc["n_lookups"] // 2, pstate.tables)
+    check(pc["equal"], "prefix cache: lookup_batch != lookup")
+    check(pc["stats_equal"], "prefix cache: stats differ from the twin's")
+    check(pc["overflowed"] and pc["versions"] == [0, 1],
+          "prefix cache: a tier never filled or refresh_tables not taken")
+    check(all(p is None for p in pstate.planes),
+          "prefix cache: a Bloom-only bank packed planes")
+    check(pc["stats"]["wasted_probes"] <= pc["stats"]["lookups"],
+          "prefix cache: more than 1 wasted probe a lookup")
+    check(all(l == {"bloom_probe": len(PC_TIERS), **pc_rule}
+              for l in pc["launches"]),
+          f"prefix cache: bloom_probe launched {pc['launches']}, the rule "
+          f"says {pc_rule} a batch")
+    q9["bloom_probe"] += sum(l["bloom_probe"] for l in pc["launches"])
+    q9["bloom_gather"] += sum(l["gather"] for l in pc["launches"])
+    print(f"prefix cache: tiers {[t[1] for t in PC_TIERS]} entries, "
+          f"{pc['n_inserts']} inserts (every tier full), {pc['n_lookups']} "
+          f"lookups in 2 batches around the second half of the inserts "
+          f"(the second through refresh_tables; no planes packed): "
+          f"lookup_batch == lookup on every key, stats == the twin's "
+          f"{json.dumps(pc['stats'])}, hits {pc['hits']} | bloom_probe "
+          f"launches by path per batch {pc['launches']} (rule {pc_rule}) | "
+          f"host ms: inserts {pc['insert_ms']:.0f} (both caches), "
+          f"lookup_batch {pc['lookup_batch_ms']:.1f} (a path check, not a "
+          f"load test) | {card} | total {time.monotonic() - t_start:.0f} s",
+          flush=True)
+    for r in records:
+        r["launches"] += q9.get(r["name"], 0)
+        if r["name"] == "bloom_probe":
+            r["gather_launches"] += q9["bloom_gather"]
 
     print(json.dumps({"kernels": records}))
     print(card)

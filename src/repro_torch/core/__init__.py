@@ -8,7 +8,9 @@ from .bloom import BloomFilter, optimal_params
 from .bloomier import (BloomierTable, XorFilter, ExactBloomier, PeelingFailed,
                        bulk_peel, bulk_peel2, bulk_assign, make_layout)
 from .chained import ChainedFilterAnd, ChainedFilterCascade
+from .cuckoo import CuckooHashTable, CuckooFilter, CuckooFull
 from .othello import Othello, DynamicExactFilter
+from .adaptive import AdaptiveCuckoo, emoma_bits, expected_access_reduction
 from .lsm import (SSTable, ChainedTableFilter, LsmLevelChained,
                   LsmLevelBloom, latency_model)
 from . import hashing, theory
@@ -22,7 +24,9 @@ __all__ = [
     "BloomierTable", "XorFilter", "ExactBloomier", "PeelingFailed",
     "ChainedFilterAnd", "ChainedFilterCascade",
     "bulk_peel", "bulk_peel2", "bulk_assign", "make_layout",
+    "CuckooHashTable", "CuckooFilter", "CuckooFull",
     "Othello", "DynamicExactFilter",
+    "AdaptiveCuckoo", "emoma_bits", "expected_access_reduction",
     "SSTable", "ChainedTableFilter", "LsmLevelChained", "LsmLevelBloom",
     "latency_model", "hashing", "theory",
 ]

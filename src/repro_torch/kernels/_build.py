@@ -5,8 +5,9 @@ Every ``csrc/*.cu`` compiles on its own (``build_all`` starts one ``nvcc``
 per source, all at once) for ``sm_90a`` into ``build/repro_torch_kernels/``
 at the root of the checkout, named by a hash of the sources, so a changed
 source never loads a stale library. Nothing here runs at import: the
-first launch builds what it needs. A missing ``nvcc`` or a failed build
-raises; there is no fallback.
+first launch builds what it needs (or ``FilterService.prepare(warm=True)``
+does, for every source a bank can route to). A missing ``nvcc`` or a
+failed build raises; there is no fallback.
 
 Each C entry point takes its device pointers and the CUDA stream as
 ``void*`` and returns ``cudaGetLastError()`` after the launch;
@@ -121,10 +122,12 @@ def stems() -> list[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def build_all() -> dict[str, ctypes.CDLL]:
-    """Build every kernel source in parallel (one nvcc each) and load it."""
+def build_all(which=None) -> dict[str, ctypes.CDLL]:
+    """Build every kernel source, or the stems in ``which``, in parallel
+    (one nvcc each) and load it."""
     with _lock:
-        todo = [s for s in stems() if s not in _libs]
+        todo = [s for s in (stems() if which is None else sorted(which))
+                if s not in _libs]
         started = {s: _start(s) for s in todo}
         for s in todo:
             _finish(s, started[s])

@@ -46,7 +46,7 @@ from repro_torch.core.tables import (BloomTable, XorTable, ExactTable,
                                      OthelloTable, ChainedAndLayout,
                                      CascadeLayout, LsmChainLayout,
                                      concat_tables)
-from repro_torch.kernels import bloomier_onchip, common
+from repro_torch.kernels import _build, bloomier_onchip, common
 from repro_torch.kernels.bloom_probe import bloom_probe
 from repro_torch.kernels.cascade_probe import cascade_descriptors, cascade_probe
 from repro_torch.kernels.chained_probe import chained_probe
@@ -62,6 +62,18 @@ _LAYOUT_TO_CLASS = {
     ChainedAndLayout: ChainedFilterAnd,
     CascadeLayout: ChainedFilterCascade,
     LsmChainLayout: ChainedTableFilter,
+}
+
+# the CUDA sources (csrc/<stem>.cu) each layout's kernel can route to, on
+# either of its paths; a bare Othello table is served by torch ops
+_LAYOUT_SOURCES = {
+    BloomTable: ("bloom_probe", "bloom_onchip"),
+    XorTable: ("xor_probe", "bloomier_onchip"),
+    ExactTable: ("xor_probe", "bloomier_onchip"),
+    OthelloTable: (),
+    ChainedAndLayout: ("chained_probe", "bloomier_onchip"),
+    CascadeLayout: ("cascade_probe", "bloom_onchip"),
+    LsmChainLayout: ("lsm_probe",),
 }
 
 
@@ -107,6 +119,12 @@ def layout_descriptors(layouts: tuple, device) -> tuple:
     return tuple(
         torch.from_numpy(cascade_descriptors(lay.probe_params())).to(device)
         if isinstance(lay, CascadeLayout) else None for lay in layouts)
+
+
+def layout_sources(layouts: tuple) -> set[str]:
+    """The kernel sources (``csrc/<stem>.cu``) a probe of ``layouts`` can
+    launch from, whichever path each kernel takes."""
+    return {s for lay in layouts for s in _LAYOUT_SOURCES[type(lay)]}
 
 
 def _table(lay) -> tuple:
@@ -271,19 +289,19 @@ class FilterService:
 
     def prepare(self, filters: list, *, warm: bool = False) -> BankState:
         """Build the NEXT bank version off to the side while the published
-        state keeps serving. With ``warm=True`` the bank is probed once on a
-        dummy key block, which builds the kernels it needs, so the first
-        probe after ``publish`` pays no build stall. Nothing is visible to
-        readers until ``publish``."""
+        state keeps serving. With ``warm=True`` on a CUDA device, every
+        kernel library the bank's layouts can route to (``layout_sources``)
+        is built and loaded here, so the first probe after ``publish``
+        pays no ``nvcc`` stall, whatever path its batch takes; on the CPU
+        there is nothing to build. Nothing is visible to readers until
+        ``publish``."""
         bank = FilterBank.pack(filters)
         bank.tables.setflags(write=False)      # immutable once staged
         tables = common.to_device(bank.tables, self.device)
         descs = layout_descriptors(bank.layouts, self.device)
         planes = layout_planes(bank.layouts, tables)
-        if warm:
-            z = torch.zeros(common.BLOCK, dtype=torch.int32, device=self.device)
-            bank_probe(tables, z, z, layouts=bank.layouts, descs=descs,
-                       planes=planes)
+        if warm and self.device.type == "cuda":
+            _build.build_all(layout_sources(bank.layouts))
         return BankState(bank=bank, tables=tables, version=self.version + 1,
                          descs=descs, planes=planes)
 

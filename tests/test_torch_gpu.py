@@ -14,8 +14,9 @@ from repro_torch.core.bloom import BloomFilter  # noqa: E402
 from repro_torch.core.bloomier import ExactBloomier, XorFilter  # noqa: E402
 from repro_torch.core.chained import (ChainedFilterAnd,  # noqa: E402
                                       ChainedFilterCascade)
-from repro_torch.kernels import (bloom_onchip, bloomier_onchip,  # noqa: E402
-                                 common, lsm_window, ops, selfcheck)
+from repro_torch.kernels import (_build, bloom_onchip,  # noqa: E402
+                                 bloomier_onchip, common, lsm_window, ops,
+                                 selfcheck)
 from repro_torch.kernels.bloom_probe import (bloom_probe,  # noqa: E402
                                              bloom_probe_onchip)
 from repro_torch.kernels.cascade_probe import (cascade_descriptors,  # noqa: E402
@@ -25,7 +26,11 @@ from repro_torch.kernels.chained_probe import chained_probe  # noqa: E402
 from repro_torch.kernels.lsm_probe import (chain_descriptors,  # noqa: E402
                                            lsm_chain_probe, lsm_probe)
 from repro_torch.kernels.xor_probe import exact_probe, xor_probe  # noqa: E402
-from repro_torch.serving import FilterService  # noqa: E402
+from repro_torch.query import (Catalog, JoinStep, Member,  # noqa: E402
+                               Pipeline, RangeFence, SemiJoin, TagEq, TagIn)
+from repro_torch.serving import (FilterService, TieredPrefixCache,  # noqa: E402
+                                 TierSpec)
+from repro_torch.serving.filter_service import layout_sources  # noqa: E402
 from repro_torch.storage import LsmStore  # noqa: E402
 
 KERNELS = {"lsm_probe": lsm_probe, "lsm_chain_probe": lsm_chain_probe,
@@ -304,3 +309,101 @@ def test_filter_kernels_reject_what_they_cannot_take(cuda):
                               **ops.chained_and_params(lay)),
                 cascade_probe(words, empty, empty, desc, layers=layers)):
         assert all(o.numel() == 0 for o in out)
+
+
+def test_prepare_warm_builds_every_library_the_bank_can_route_to(
+        cuda, tmp_path, monkeypatch):
+    """From an empty build directory, ``prepare(warm=True)`` leaves a
+    library of every source the bank's layouts can route to, and the
+    first probes after ``publish`` (gather and on-chip paths) build
+    nothing more."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_libs", {})
+    keys = H.random_keys(60_000, seed=9)
+    pos, neg = keys[:5000], keys[5000:45_000]
+    filters = [BloomFilter.build(pos, 0.01, seed=11),
+               XorFilter.build(pos, 8, seed=12),
+               ExactBloomier.build(pos[:2500], neg[:5000], seed=13),
+               ChainedFilterAnd.build(pos, neg, seed=14),
+               ChainedFilterCascade.build(pos, neg, seed=3)]
+    svc = FilterService(filters, device=cuda)
+    assert not list(tmp_path.glob("*.so"))
+    state = svc.prepare(filters, warm=True)
+    want = layout_sources(state.bank.layouts)
+    built = {p.name.rsplit("-", 1)[0] for p in tmp_path.glob("*.so")}
+    assert built == want
+    svc.publish(state)
+    for n in (1024, bloomier_onchip.MIN_KEYS):
+        svc.probe(np.random.default_rng(n).choice(keys, n))
+    torch.cuda.synchronize()
+    assert {p.name.rsplit("-", 1)[0] for p in tmp_path.glob("*.so")} == want
+
+
+def _tag_fn(keys, vals):
+    return vals & np.uint64(15)
+
+
+def test_query_layer_on_card_matches_cpu(cuda):
+    """A tagged collection, a 4-stage plan, a scan-driven plan and a
+    semijoin on the card equal the same on the CPU."""
+    keys = H.random_keys(30_000, seed=21)
+    vals = np.random.default_rng(2).integers(1, 2 ** 60, len(keys),
+                                             dtype=np.uint64)
+    out = {}
+    for d in (cuda, "cpu"):
+        cat = Catalog()
+        ev = cat.create_collection("events", seed=3, device=d,
+                                   memtable_capacity=2 ** 62,
+                                   auto_compact=False)
+        orders = cat.create_collection("orders", seed=11, device=d,
+                                       memtable_capacity=2 ** 62,
+                                       auto_compact=False)
+        for c in (ev, orders):
+            c.create_index("tags", _tag_fn)
+        for part in np.array_split(np.arange(20_000), 4):
+            ev.store.put_batch(keys[part], vals[part])
+            ev.store.flush()
+        ev.store.delete_batch(keys[:500])
+        orders.store.put_batch(keys[::4], vals[::4] + np.uint64(1))
+        orders.store.flush()
+        ks = np.sort(keys[:20_000])
+        stages = (TagEq("tags", 3), RangeFence(int(ks[5000]), int(ks[15000])),
+                  TagIn("tags", (1, 3, 5)), Member())
+        plan = Pipeline(ev, stages).run(keys)
+        scan = Pipeline(ev, (RangeFence(int(ks[100]), int(ks[900])),
+                             TagIn("tags", (0, 1, 2)))).run()
+        sj = SemiJoin(Pipeline(ev, (Member(),)),
+                      (JoinStep(orders, stages=(TagIn("tags", (2, 4)),)),)
+                      ).run(keys)
+        out[str(d)] = (plan, scan, sj)
+    (pg, sg, jg), (pc, sc, jc) = out["cuda"], out["cpu"]
+    for g, c in ((pg, pc), (sg, sc)):
+        for f in ("keys", "vals", "reads"):
+            np.testing.assert_array_equal(getattr(g, f), getattr(c, f))
+        assert g.stage_survivors == c.stage_survivors
+    for f in ("keys", "vals"):
+        np.testing.assert_array_equal(getattr(jg, f), getattr(jc, f))
+    np.testing.assert_array_equal(jg.right_vals[0], jc.right_vals[0])
+    assert jg.step_stats == jc.step_stats
+
+
+def test_prefix_cache_on_card_matches_cpu(cuda):
+    tiers = [TierSpec("hbm", 8, 1.0), TierSpec("dram", 32, 10.0),
+             TierSpec("ssd", 128, 150.0)]
+    caches = [TieredPrefixCache(tiers, seed=5, device=d)
+              for d in (cuda, "cpu")]
+    rng = np.random.default_rng(3)
+    keys = rng.integers(1, 2 ** 62, 300).tolist()
+    probe = keys + rng.integers(2 ** 62, 2 ** 63, 300).tolist()
+    before = bloom_probe.launches
+    got = []
+    for pc in caches:
+        res = []
+        for part in range(2):
+            for i in range(part * 150, (part + 1) * 150):
+                pc.insert(keys[i], payload=i)
+            res += pc.lookup_batch(probe[part * 300:(part + 1) * 300])
+        got.append(res)
+    assert got[0] == got[1]
+    assert caches[0].stats() == caches[1].stats()
+    assert bloom_probe.launches == before + 2 * len(tiers)
