@@ -92,6 +92,26 @@ Phases, one line each; any failure exits non-zero and prints no result:
              the engine's default tiers (8 / 32 / 128 entries), 400
              inserts and 4,096 lookups, ``lookup_batch`` == ``lookup``
              and the stats equal, its ``bloom_probe`` launches by path
+10. serve    the LM server and the §5.5 learned filter (``serve_cell``,
+             ``learned_cell``): a ``ServeEngine`` over llama3.2-1b FULL
+             (f32 weights from a seed on the card, bf16 compute, the
+             default tiers 8 / 32 / 128, max_len 256) runs 16 requests
+             over 4 distinct 64-token prompts twice, then a fresh engine
+             one request a prompt: equal outputs per prompt, across runs
+             (lossless hits) and to the fresh engine's; ``stats()`` equal
+             to a CPU twin engine's over the same stream; 3
+             ``bloom_probe`` launches a run, by the path the rule names;
+             decode equal to teacher forcing within TF_REL_BF16; host
+             times of prefill, decode (bf16 copy and f32 weights), the
+             payload's host copy and upload, the device profile of one
+             step, peak memory and the decode bound; the model cut to 2
+             layers at f32 (TF32 off), the card against the CPU from the
+             same numpy weights within CARD_CPU_REL; the learned filter
+             at n = 30,000 (``benchmarks/learned_filter.py``'s four train
+             fractions, three backups) held to the JAX package's figures,
+             then a 1,000,000-key build with the chained and bloom
+             backups (training and query times, bits, fpr, 0 false
+             negatives)
 
 Then one JSON line of kernel records, the card line and the result line.
 Launch counts are set to 0 just before each path is driven and read just
@@ -110,6 +130,7 @@ import statistics
 import subprocess
 import sys
 import time
+from dataclasses import replace
 
 import numpy as np
 
@@ -403,6 +424,210 @@ def prefix_cache_cell(device, *, n_inserts: int = 400, n_lookups: int = 4096,
             "n_lookups": n_lookups, "n_inserts": n_inserts}
 
 
+# -- phase 10: the LM server (llama3.2-1b) and the §5.5 learned filter ------
+LM_ARCH = "llama3.2-1b"
+# 16 requests over 4 distinct 64-token prompts, 16 new tokens each
+LM_PROMPTS, LM_PROMPT_LEN, LM_REQUESTS, LM_MAX_NEW, LM_MAX_LEN = \
+    4, 64, 16, 16, 256
+# decode against teacher forcing at bf16: ||decode - prefill|| / ||prefill||
+# of each step's logits. bf16 keeps 8 significant bits (2^-9 relative
+# rounding); a decode step and a prefill round the same values after
+# different accumulation orders, ~10 roundings a layer over 16 layers
+# compound to ~0.025, and 0.05 is twice that
+TF_REL_BF16 = 0.05
+# the card against the CPU at f32, TF32 off: max |card - cpu| / max |cpu|
+CARD_CPU_REL = 1e-3
+# the JAX package's §5.5 figures (benchmarks/learned_filter.py's recipe:
+# synth_url_dataset(n/2, n/2, seed=5), model_fpr 0.01, seed 11), backup
+# bits of (bloom, chained) at (n, train_frac); on the CPU, 0 false
+# negatives and a chained fpr of 0.0100-0.0101 in every row
+LEARNED_REF = {(3000, 0.1): (13487, 4096), (3000, 1.0): (5338, 3328),
+               (30000, 0.1): (128044, 34816), (30000, 0.3): (125364, 34816),
+               (30000, 0.5): (126213, 34816), (30000, 1.0): (118527, 33792)}
+# the port's model is trained from other initial weights (a torch
+# generator, not jax.random), so its threshold and below-threshold sets
+# differ; the chained backup is exact, so its fpr is the model's target
+# (0.01) plus the quantile's rounding, and its bits follow the positives
+# below the threshold, here within 15% of the reference's
+LEARNED_FPR_MAX, LEARNED_BITS_REL = 0.012, 0.15
+LEARNED_KINDS = ("bloom", "bloomier", "chained")
+
+
+def lm_requests(vocab: int, n_requests: int, *, max_new: int = LM_MAX_NEW,
+                n_prompts: int = LM_PROMPTS, prompt_len: int = LM_PROMPT_LEN,
+                seed: int = 3):
+    """(prompts, requests): ``n_prompts`` seeded prompts of ``prompt_len``
+    tokens below ``vocab``, request i asking prompt i mod ``n_prompts``."""
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(0, vocab, (n_prompts, prompt_len)).astype(np.int32)
+    return prompts, [Request(rid=i, prompt=prompts[i % n_prompts].copy(),
+                             max_new=max_new) for i in range(n_requests)]
+
+
+def serve_cell(model, params, device, *, n_requests: int = LM_REQUESTS,
+               max_len: int = LM_MAX_LEN, reset=lambda: None, read=dict,
+               **req_kw) -> dict:
+    """One ``ServeEngine`` on ``device`` runs the same request stream twice
+    (the second run all prefix-cache hits); a fresh engine then runs one
+    request per prompt. ``reset()`` / ``read()`` around each run; each
+    run's outputs, cumulative ``stats()``, launches and host seconds."""
+    from repro_torch.serving import ServeEngine
+    vocab = model.cfg.vocab
+    eng = ServeEngine(model, params, max_len=max_len, device=device)
+    runs = []
+    for _ in range(2):
+        prompts, reqs = lm_requests(vocab, n_requests, **req_kw)
+        reset()
+        t = time.perf_counter()
+        eng.run(reqs)
+        runs.append({"s": time.perf_counter() - t, "launches": read(),
+                     "outputs": [r.output for r in reqs],
+                     "stats": eng.stats(),
+                     "tokens": sum(len(r.output) for r in reqs)})
+    fresh = ServeEngine(model, params, max_len=max_len, device=device)
+    _, reqs = lm_requests(vocab, len(prompts), **req_kw)
+    reset()
+    fresh.run(reqs)
+    return {"runs": runs, "fresh": [r.output for r in reqs],
+            "fresh_launches": read(), "prompts": prompts, "engine": eng}
+
+
+def serve_faults(cell: dict, twin: dict | None = None) -> list[str]:
+    """What ``serve_cell``'s result gets wrong: outputs that differ for
+    one prompt, across the two runs (a cache hit must be lossless) or from
+    a fresh engine; the prefix cache's accounting (0.75 of the prefill
+    tokens saved after run 1, 0.875 after run 2 for 16 requests over 4
+    prompts; at most one wasted probe a lookup); stats other than the
+    twin's (another engine given the same stream)."""
+    (r1, r2), n = cell["runs"], len(cell["fresh"])
+    n_req = len(r1["outputs"])
+    faults = []
+    if any(o != r1["outputs"][i % n] for i, o in enumerate(r1["outputs"])):
+        faults.append("requests with one prompt gave different outputs")
+    if r2["outputs"] != r1["outputs"]:
+        faults.append("the second run (prefix-cache hits) != the first")
+    if cell["fresh"] != r1["outputs"][:n]:
+        faults.append("a fresh engine's outputs != the first run's")
+    saved = [r["stats"]["prefill_tokens_saved_frac"] for r in (r1, r2)]
+    if saved != [(n_req - n) / n_req, (2 * n_req - n) / (2 * n_req)]:
+        faults.append(f"prefill tokens saved {saved}")
+    if any(r["stats"]["wasted_probes"] > r["stats"]["lookups"]
+           for r in (r1, r2)):
+        faults.append("more than one wasted probe a lookup")
+    if twin is not None and [r["stats"] for r in twin["runs"]] != \
+            [r["stats"] for r in (r1, r2)]:
+        faults.append("stats() != the twin's")
+    return faults
+
+
+def teacher_forcing(model, params, prompt, n_steps: int, max_len: int,
+                    device) -> tuple[list, list]:
+    """Greedy decode of ``n_steps`` tokens after ``prompt`` (the engine's
+    loop), and for each decode step t the relative L2 distance and max
+    |difference| of its logits from a prefill over the prompt and the first
+    t generated tokens. Returns (tokens, [(rel, max_abs)])."""
+    import torch
+
+    def fill(tokens):
+        t = torch.from_numpy(np.asarray(tokens, np.int32)[None]).to(device)
+        return model.prefill(params, {"tokens": t}, max_len)
+
+    with torch.inference_mode():
+        logits, cache = fill(prompt)
+        gen = [int(torch.argmax(logits[0, -1]))]
+        errs = []
+        for _ in range(n_steps - 1):
+            step = torch.tensor([[gen[-1]]], dtype=torch.int32, device=device)
+            lg, cache = model.decode_step(params, cache, step)
+            ref, _ = fill(np.concatenate([prompt, gen]))
+            d = (lg - ref).float()
+            errs.append((float(d.norm() / ref.float().norm()),
+                         float(d.abs().max())))
+            gen.append(int(torch.argmax(lg[0, -1])))
+    return gen, errs
+
+
+def numpy_params(specs, seed: int):
+    """Numpy weights for a ParamSpec tree: ones and zeros as specified,
+    uniform of std ``scale / sqrt(fan_in)`` elsewhere (numpy's uniform
+    draws are twice as fast as its normal ones at 0.6 G values)."""
+    from repro_torch.models.common import tree_map
+    rng = np.random.default_rng(seed)
+
+    def one(spec):
+        if spec.init in ("zeros", "ones"):
+            return np.full(spec.shape, spec.init == "ones", np.float32)
+        std = spec.scale / math.sqrt(max(1, spec.shape[0]))
+        a = rng.random(spec.shape, dtype=np.float32)
+        a -= np.float32(0.5)
+        a *= np.float32(std * math.sqrt(12.0))
+        return a
+    return tree_map(one, specs)
+
+
+def forced_logits(model, params, prompt, tokens, max_len: int,
+                  device) -> list:
+    """The logits (numpy f32) of a prefill over ``prompt`` and of one
+    decode step for each of ``tokens``."""
+    import torch
+    with torch.inference_mode():
+        t = torch.from_numpy(np.asarray(prompt, np.int32)[None]).to(device)
+        lg, cache = model.prefill(params, {"tokens": t}, max_len)
+        out = [lg.float().cpu().numpy()]
+        for tok in tokens:
+            step = torch.tensor([[tok]], dtype=torch.int32, device=device)
+            lg, cache = model.decode_step(params, cache, step)
+            out.append(lg.float().cpu().numpy())
+    return out
+
+
+def learned_cell(n: int, fracs, device, kinds=LEARNED_KINDS) -> list[dict]:
+    """``benchmarks/learned_filter.py``'s cell with the port: for each
+    train fraction and backup, the backup's bits, the fpr over the
+    negatives, the false negatives and the build's host seconds."""
+    from repro_torch.core.learned import LearnedFilter, synth_url_dataset
+    keys, feats, labels = synth_url_dataset(n // 2, n // 2, seed=5)
+    rows = []
+    for frac in fracs:
+        for kind in kinds:
+            t = time.perf_counter()
+            lf = LearnedFilter.build(keys, feats, labels, backup_kind=kind,
+                                     model_fpr=0.01, seed=11,
+                                     train_frac=frac, device=device)
+            build_s = time.perf_counter() - t
+            got = lf.query(keys, feats)
+            rows.append({"n": n, "frac": frac, "kind": kind,
+                         "bits": lf.filter_bits,
+                         "fpr": float(got[~labels].mean()),
+                         "fn": int((~got[labels]).sum()),
+                         "model_bits": lf.model_bits, "build_s": build_s})
+    return rows
+
+
+def learned_faults(rows: list[dict]) -> list[str]:
+    """Rows of ``learned_cell`` that miss the §5.5 figures: any false
+    negative; a chained fpr over LEARNED_FPR_MAX; chained bits not below
+    the bloom bits, or over LEARNED_BITS_REL from the reference's."""
+    faults = [f"{r['kind']} at n {r['n']}, frac {r['frac']}: {r['fn']} "
+              f"false negatives" for r in rows if r["fn"]]
+    cells = {(r["n"], r["frac"], r["kind"]): r for r in rows}
+    for (n, frac, kind), r in cells.items():
+        if kind != "chained":
+            continue
+        if r["fpr"] > LEARNED_FPR_MAX:
+            faults.append(f"chained fpr {r['fpr']} at n {n}, frac {frac}")
+        bloom = cells.get((n, frac, "bloom"))
+        if bloom is not None and r["bits"] >= bloom["bits"]:
+            faults.append(f"chained bits {r['bits']} >= bloom "
+                          f"{bloom['bits']} at n {n}, frac {frac}")
+        ref = LEARNED_REF.get((n, frac))
+        if ref is not None and abs(r["bits"] / ref[1] - 1) > LEARNED_BITS_REL:
+            faults.append(f"chained bits {r['bits']} against the "
+                          f"reference's {ref[1]} at n {n}, frac {frac}")
+    return faults
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -436,7 +661,15 @@ def main() -> None:
             exact_probe, exact_probe_gather, exact_probe_onchip,
             exact_probe_ref, xor_probe, xor_probe_gather, xor_probe_onchip,
             xor_probe_ref)
+        from repro_torch.configs import get_arch
+        from repro_torch.core.learned import (LearnedFilter,
+                                              synth_url_dataset,
+                                              train_score_model)
+        from repro_torch.models import common as MC
+        from repro_torch.models.transformer import TransformerLM
         from repro_torch.query import Catalog, Member, Pipeline, RangeFence
+        from repro_torch.serving.engine import (payload_to_device,
+                                                payload_to_host)
         from repro_torch.serving.filter_service import (FilterService,
                                                         bank_probe,
                                                         layout_planes)
@@ -1482,9 +1715,12 @@ def main() -> None:
           f"{time.monotonic() - t_start:.0f} s", flush=True)
 
     # -- 9. query: the query layer and the prefix cache --------------------
-    def device_profile(fn):
-        """(device ms, device operations: kernels and copies) of one call
-        of ``fn`` (torch.profiler), or why not measured."""
+    def device_rows(fn):
+        """(device µs, count, name) of each device operation (kernels and
+        copies: the profiler's device-side events) in one call of ``fn``,
+        or why not measured. The CPU ops that launch them report the same
+        time as their own and are not counted again."""
+        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         fn()
         torch.cuda.synchronize()
@@ -1493,12 +1729,29 @@ def main() -> None:
                                      ProfilerActivity.CUDA]) as prof:
                 fn()
                 torch.cuda.synchronize()
-            rows = [(e.self_device_time_total, e.count)
+            rows = [(e.self_device_time_total, e.count, e.key)
                     for e in prof.key_averages()
-                    if e.self_device_time_total > 0]
+                    if e.device_type != DeviceType.CPU
+                    and e.self_device_time_total > 0]
         except Exception as exc:          # the profiler is optional here
             return f"not measured ({exc})"
-        return sum(us for us, _ in rows) / 1e3, sum(c for _, c in rows)
+        return rows or "not measured (no device-side events)"
+
+    def device_totals(rows):
+        """(device ms, device operations) of ``device_rows``' rows."""
+        if isinstance(rows, str):
+            return rows
+        return sum(us for us, _, _ in rows) / 1e3, sum(c for _, c, _ in rows)
+
+    def device_profile(fn):
+        return device_totals(device_rows(fn))
+
+    def device_top(rows, k: int = 6) -> str:
+        """The ``k`` of ``device_rows``' rows with the most device time."""
+        if isinstance(rows, str):
+            return rows
+        return "; ".join(f"{name[:48]} {us / 1e3:.3f} ms x{n}"
+                         for us, n, name in sorted(rows, reverse=True)[:k])
 
     def busy(prof, call_ms: float) -> str:
         """The device's share of a call of ``call_ms`` host ms (timed
@@ -1636,6 +1889,203 @@ def main() -> None:
           f"lookup_batch {pc['lookup_batch_ms']:.1f} (a path check, not a "
           f"load test) | {card} | total {time.monotonic() - t_start:.0f} s",
           flush=True)
+
+    # -- 10. the LM server at full width and the §5.5 learned filter ---------
+    # (a) ServeEngine over llama3.2-1b FULL: f32 weights from a seed on
+    # the card, bf16 compute, the prefix cache's tier bank on the card
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = get_arch(LM_ARCH).model()
+    cfg = model.cfg
+    t = time.perf_counter()
+    params = MC.init_from_specs(model.param_specs(),
+                                torch.Generator(dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_params = sum(a.numel() for a in MC.tree_leaves(params))
+    # the reference's param_count leaves out the final norm's gains
+    check(n_params == cfg.param_count() + cfg.d_model,
+          f"llama3.2-1b FULL has {n_params} parameters")
+    pc10 = []
+    cell = serve_cell(model, params, dev, reset=reset_counts,
+                      read=bloom_launches)
+    eng = cell["engine"]
+    twin_model = TransformerLM(replace(cfg, n_layers=1, d_model=64,
+                                       n_heads=4, n_kv_heads=2, d_ff=128,
+                                       head_dim=16))
+    MC.set_compute_dtype(torch.float32)
+    twin = serve_cell(twin_model, MC.init_from_specs(
+        twin_model.param_specs(), torch.Generator().manual_seed(0), "cpu"),
+        "cpu")
+    MC.set_compute_dtype(torch.bfloat16)
+    faults = serve_faults(cell, twin)
+    check(not faults, f"serve cell: {faults}")
+    pstate = eng.prefix_cache._service.state
+    tier_layouts = [((lay.m_bits, lay.k, lay.seed, lay.offset),)
+                    for lay in pstate.bank.layouts]
+    for launches, n_keys in ([(r["launches"], LM_REQUESTS)
+                              for r in cell["runs"]]
+                             + [(cell["fresh_launches"], LM_PROMPTS)]):
+        rule = rule_paths(tier_layouts, n_keys, pstate.tables)
+        check(launches == {"bloom_probe": len(PC_TIERS), **rule},
+              f"serve cell: bloom_probe launched {launches} in a run, the "
+              f"rule says {rule}")
+        pc10.append(launches)
+    # decode against teacher forcing, over the engine's first prompt
+    cp = eng.compute_params
+    prompt0 = cell["prompts"][0]
+    gen, tf_errs = teacher_forcing(model, cp, prompt0, LM_MAX_NEW,
+                                   LM_MAX_LEN, dev)
+    check(gen == cell["runs"][0]["outputs"][0],
+          "teacher forcing's greedy tokens != the engine's")
+    tf_rel = max(e for e, _ in tf_errs)
+    check(tf_rel <= TF_REL_BF16, f"decode != teacher forcing at bf16: "
+          f"relative L2 {tf_rel} > {TF_REL_BF16}")
+    # host-clock times, a warm call first: prefill of one 64-token
+    # prompt, one decode step over the bf16 copy the engine holds and over
+    # the f32 weights (the reference's per-einsum casts, run eagerly)
+    tok0 = torch.from_numpy(prompt0[None]).to(dev)
+    step = torch.tensor([[gen[0]]], dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        prefill_ms = host_ms(lambda: model.prefill(cp, {"tokens": tok0},
+                                                   LM_MAX_LEN), reps=5)
+        out0 = model.prefill(cp, {"tokens": tok0}, LM_MAX_LEN)
+        cache0 = out0[1]
+        decode_ms = host_ms(lambda: model.decode_step(cp, cache0, step),
+                            reps=20)
+        decode_f32_ms = host_ms(lambda: model.decode_step(params, cache0,
+                                                          step), reps=20)
+        decode_rows = device_rows(lambda: model.decode_step(cp, cache0,
+                                                            step))
+        decode_f32_prof = device_profile(
+            lambda: model.decode_step(params, cache0, step))
+        prefill_prof = device_profile(lambda: model.prefill(
+            cp, {"tokens": tok0}, LM_MAX_LEN))
+        to_host_ms = host_ms(lambda: payload_to_host(out0), reps=5)
+        host0 = payload_to_host(out0)
+        upload_ms = host_ms(lambda: payload_to_device(host0, dev), reps=5)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    kv_bytes = sum(a.numel() * a.element_size() for layer in cache0["layers"]
+                   for a in layer.values())
+    weights = n_params - params["embed"].numel()
+    bound_f32_ms = 4 * weights / HBM_BYTES_PER_S * 1e3
+    bound_bf16_ms = 2 * weights / HBM_BYTES_PER_S * 1e3
+    r1, r2 = cell["runs"]
+    print(f"serve: {LM_ARCH} FULL ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}; {n_params} f32 parameters from "
+          f"a seed on the card in {init_s:.1f} s), bf16 compute, max_len "
+          f"{LM_MAX_LEN}, tiers {[t[1] for t in PC_TIERS]} | {LM_REQUESTS} "
+          f"requests over {LM_PROMPTS} {LM_PROMPT_LEN}-token prompts, "
+          f"max_new {LM_MAX_NEW}, twice, then a fresh engine: outputs equal "
+          f"per prompt, across runs and to the fresh engine's; stats == the "
+          f"CPU twin's: run 1 {json.dumps(r1['stats'])}, run 2 "
+          f"{json.dumps(r2['stats'])} | bloom_probe launches a run {pc10} | "
+          f"decode == teacher forcing over {len(tf_errs)} steps: relative "
+          f"L2 max {tf_rel:.4g} (<= {TF_REL_BF16}), max |diff| "
+          f"{max(e for _, e in tf_errs):.4g} | {card}", flush=True)
+    print(f"serve times (host clock, a warm call first): prefill "
+          f"{prefill_ms:.2f} ms per {LM_PROMPT_LEN}-token request; decode "
+          f"{decode_ms:.3f} ms per token over the engine's bf16 weights, "
+          f"{decode_f32_ms:.3f} ms over the f32 weights cast in every "
+          f"matmul; one step profiled: bf16 weights "
+          f"{busy(device_totals(decode_rows), decode_ms)}; f32 weights "
+          f"{busy(decode_f32_prof, decode_f32_ms)}; the bf16 step's top "
+          f"device operations: {device_top(decode_rows)}; prefill "
+          f"{busy(prefill_prof, prefill_ms)}; decode bound "
+          f"{bound_f32_ms:.3f} ms (f32 weights but the "
+          f"embedding table, {4 * weights / 1e9:.3f} GB at 3.35 TB/s), "
+          f"{bound_bf16_ms:.3f} ms at bf16 | run 1 {r1['tokens']} tokens in "
+          f"{r1['s'] * 1e3:.0f} ms ({r1['tokens'] / r1['s']:.1f} tokens/s), "
+          f"run 2 (all hits) {r2['tokens']} in {r2['s'] * 1e3:.0f} ms "
+          f"({r2['tokens'] / r2['s']:.1f} tokens/s) | KV cache "
+          f"{kv_bytes} B a request ({kv_bytes // LM_MAX_LEN} B a token at "
+          f"bf16) | payload host copy {to_host_ms:.2f} ms an insert, upload "
+          f"{upload_ms:.2f} ms a hit | peak device memory allocated in "
+          f"this phase {peak_gb:.2f} GB (earlier phases' buffers included) "
+          f"| {card}", flush=True)
+    del params, cp, eng, cell, out0, cache0
+    # (b) the same model cut to 2 layers at f32 (TF32 off): the card
+    # against the port on the CPU, from the same numpy weights
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    MC.set_compute_dtype(torch.float32)
+    small = TransformerLM(replace(cfg, n_layers=2))
+    t = time.perf_counter()
+    np_params = numpy_params(small.param_specs(), seed=1)
+    np_s = time.perf_counter() - t
+    forced = np.random.default_rng(9).integers(0, cfg.vocab, 4).tolist()
+    t = time.perf_counter()
+    on_card = forced_logits(small, MC.params_from_numpy(np_params, dev),
+                            prompt0, forced, LM_MAX_LEN, dev)
+    card_s = time.perf_counter() - t
+    t = time.perf_counter()
+    on_cpu = forced_logits(small, MC.params_from_numpy(np_params, "cpu"),
+                           prompt0, forced, LM_MAX_LEN, "cpu")
+    cpu_s = time.perf_counter() - t
+    MC.set_compute_dtype(torch.bfloat16)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    del np_params
+    rel = [float(np.abs(a - b).max() / np.abs(b).max())
+           for a, b in zip(on_card, on_cpu)]
+    check(max(rel) <= CARD_CPU_REL, f"card != CPU at 2 layers, f32: "
+          f"relative {rel} > {CARD_CPU_REL}")
+    print(f"serve card vs CPU: {LM_ARCH} FULL widths cut to 2 layers, f32, "
+          f"TF32 off, numpy weights ({np_s:.1f} s to make): prefill + "
+          f"{len(forced)} decode steps, max |card - cpu| / max |cpu| per "
+          f"step {[f'{r:.3g}' for r in rel]} (<= {CARD_CPU_REL}) | card "
+          f"{card_s:.1f} s, CPU {cpu_s:.1f} s (uploads included) | {card}",
+          flush=True)
+    # (c) the §5.5 learned filter: benchmarks/learned_filter.py's
+    # full-scale recipe, then one build of 1,000,000 keys
+    rows = learned_cell(30_000, (0.1, 0.3, 0.5, 1.0), dev)
+    faults = learned_faults(rows)
+    check(not faults, f"learned filter: {faults}")
+    cells10 = {}
+    for r in rows:
+        cells10.setdefault(r["frac"], {})[r["kind"]] = (r["bits"],
+                                                        round(r["fpr"], 4))
+    print(f"learned n 30000 (seed 5 / 11, model_fpr 0.01), backup bits / "
+          f"fpr by train frac: {json.dumps(cells10)}; 0 false negatives; "
+          f"chained fpr <= {LEARNED_FPR_MAX}, bits within "
+          f"{LEARNED_BITS_REL:.0%} of the reference's "
+          f"{ {k[1]: v[1] for k, v in LEARNED_REF.items() if k[0] == 30000} } "
+          f"and below bloom | builds {sum(r['build_s'] for r in rows):.1f} s "
+          f"host clock for {len(rows)} | {card}", flush=True)
+    keys1m, feats1m, labels1m = synth_url_dataset(500_000, 500_000, seed=5)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    train_score_model(feats1m, labels1m, seed=11, device=dev)
+    torch.cuda.synchronize()
+    train_ms = (time.perf_counter() - t) * 1e3
+    big = {}
+    for kind in ("chained", "bloom"):
+        t = time.perf_counter()
+        lf = LearnedFilter.build(keys1m, feats1m, labels1m, backup_kind=kind,
+                                 model_fpr=0.01, seed=11, device=dev)
+        build_s = time.perf_counter() - t
+        lf.query(keys1m[:1024], feats1m[:1024])              # warm
+        t = time.perf_counter()
+        got = lf.query(keys1m, feats1m)
+        query_ms = (time.perf_counter() - t) * 1e3
+        fn = int((~got[labels1m]).sum())
+        check(fn == 0, f"learned 1M {kind}: {fn} false negatives")
+        big[kind] = {"bits": lf.filter_bits,
+                     "fpr": float(got[~labels1m].mean()),
+                     "build_s": round(build_s, 2),
+                     "query_ms": round(query_ms, 1)}
+    check(big["chained"]["fpr"] <= LEARNED_FPR_MAX
+          and big["chained"]["bits"] < big["bloom"]["bits"],
+          f"learned 1M: {big}")
+    print(f"learned 1M keys (500k / 500k, dim 16, "
+          f"{feats1m.nbytes / 2 ** 20:.0f} MiB of features): training "
+          f"{train_ms:.0f} ms on the card (400 full-batch Adam steps) | "
+          f"{json.dumps(big)} | chained saves "
+          f"{1 - big['chained']['bits'] / big['bloom']['bits']:.1%} of the "
+          f"bloom backup's bits; 0 false negatives | {card} | total "
+          f"{time.monotonic() - t_start:.0f} s", flush=True)
+    q9["bloom_probe"] += sum(l["bloom_probe"] for l in pc10)
+    q9["bloom_gather"] += sum(l["gather"] for l in pc10)
     for r in records:
         r["launches"] += q9.get(r["name"], 0)
         if r["name"] == "bloom_probe":

@@ -1,0 +1,67 @@
+"""ArchDef / Shape plumbing shared by every architecture config.
+
+Shape cells (assigned):
+    train_4k     seq 4,096   global_batch 256   -> train_step
+    prefill_32k  seq 32,768  global_batch 32    -> prefill
+    decode_32k   seq 32,768  global_batch 128   -> serve_step (1 new token,
+                                                   KV cache of seq_len)
+    long_500k    seq 524,288 global_batch 1     -> serve_step; sub-quadratic
+                                                   archs only (SSM/hybrid)
+
+The reference's ``input_specs`` (JAX ``ShapeDtypeStruct`` stand-ins for
+its dry-run) waits with ``launch/dryrun.py`` (ROADMAP.md, Queue 1 item 8).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+
+@dataclass(frozen=True)
+class Shape:
+    name: str
+    kind: str                  # 'train' | 'prefill' | 'decode'
+    seq: int
+    batch: int
+
+
+SHAPES = {
+    "train_4k": Shape("train_4k", "train", 4096, 256),
+    "prefill_32k": Shape("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": Shape("decode_32k", "decode", 32768, 128),
+    "long_500k": Shape("long_500k", "decode", 524288, 1),
+}
+
+SMOKE_SHAPES = {
+    "train_4k": Shape("train_4k", "train", 32, 2),
+    "prefill_32k": Shape("prefill_32k", "prefill", 16, 1),
+    "decode_32k": Shape("decode_32k", "decode", 32, 2),
+    "long_500k": Shape("long_500k", "decode", 64, 1),
+}
+
+
+@dataclass(frozen=True)
+class ArchDef:
+    arch_id: str
+    family: str                        # dense | moe | ssm | hybrid | audio | vlm
+    source: str                        # provenance note
+    make_model: Callable               # (smoke: bool, tp_divisor: int) -> model
+    subquadratic: bool = False         # may run long_500k
+    modality_inputs: Callable | None = None   # (cfg, B) -> {name: spec}
+    encoder_only: bool = False
+
+    def model(self, smoke: bool = False, tp_divisor: int = 1, **kw):
+        return self.make_model(smoke, tp_divisor, **kw)
+
+
+def applicable_shapes(arch: ArchDef) -> list[str]:
+    names = ["train_4k", "prefill_32k", "decode_32k", "long_500k"]
+    out = []
+    for n in names:
+        s = SHAPES[n]
+        if n == "long_500k" and not arch.subquadratic:
+            continue          # needs sub-quadratic attention
+        if s.kind == "decode" and arch.encoder_only:
+            continue          # encoder-only archs have no decode step
+        out.append(n)
+    return out

@@ -13,6 +13,7 @@ from .othello import Othello, DynamicExactFilter
 from .adaptive import AdaptiveCuckoo, emoma_bits, expected_access_reduction
 from .lsm import (SSTable, ChainedTableFilter, LsmLevelChained,
                   LsmLevelBloom, latency_model)
+from .learned import LearnedFilter, synth_url_dataset
 from . import hashing, theory
 
 __all__ = [
@@ -28,5 +29,6 @@ __all__ = [
     "Othello", "DynamicExactFilter",
     "AdaptiveCuckoo", "emoma_bits", "expected_access_reduction",
     "SSTable", "ChainedTableFilter", "LsmLevelChained", "LsmLevelBloom",
-    "latency_model", "hashing", "theory",
+    "latency_model", "LearnedFilter", "synth_url_dataset",
+    "hashing", "theory",
 ]

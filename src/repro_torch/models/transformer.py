@@ -1,0 +1,250 @@
+"""Decoder-only transformer LM, its dense path (llama3.2-1b and the other
+dense/GQA archs of the reference's ``repro/models/transformer.py``).
+
+Layers are unrolled; ``prefill`` and ``decode_step`` (serve) share one
+parameter tree with the reference's keys and shapes. Plain functions of
+a params dict, eager torch: the reference's einsums become torch matmuls
+on the same dtypes, the KV cache update stays functional (a new cache
+tensor per step, as ``dynamic_update_slice`` returns), and the cache
+length is a host int. MoE, MLA and scanned layers wait (ROADMAP.md,
+Queue 1 item 7); ``loss`` comes with training.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from . import common as C
+from .common import ParamSpec
+
+
+@dataclass(frozen=True)
+class TransformerConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0                 # 0 -> d_model // n_heads
+    qk_norm: bool = False
+    rope_theta: float = 5e5
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    moe_d_ff: int = 0
+    first_k_dense: int = 0
+    # MLA
+    mla: bool = False
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    # attention masking
+    sliding_window: int = 0           # 0 = full causal
+    vocab_pad_to: int = 1             # pad vocab to a multiple (TP divisibility)
+
+    @property
+    def dh(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        m = self.vocab_pad_to
+        return ((self.vocab + m - 1) // m) * m
+
+    def is_moe_layer(self, i: int) -> bool:
+        return self.n_experts > 0 and i >= self.first_k_dense
+
+    def param_count(self) -> int:
+        """Total parameters (for 6ND roofline accounting)."""
+        c, D, dh = self, self.d_model, self.dh
+        n = c.vocab * D * 2                      # embed + head
+        for i in range(c.n_layers):
+            n += 2 * D                           # norms
+            if c.mla:
+                n += D * c.n_heads * (c.qk_nope_dim + c.qk_rope_dim)
+                n += D * (c.kv_lora_rank + c.qk_rope_dim) + c.kv_lora_rank
+                n += c.kv_lora_rank * c.n_heads * (c.qk_nope_dim + c.v_head_dim)
+                n += c.n_heads * c.v_head_dim * D
+            else:
+                n += D * c.n_heads * dh + 2 * D * c.n_kv_heads * dh + c.n_heads * dh * D
+            if c.is_moe_layer(i):
+                n += D * c.n_experts + 3 * c.n_experts * D * c.moe_d_ff
+                n += 3 * D * c.moe_d_ff * c.n_shared_experts
+            else:
+                n += 3 * D * c.d_ff
+        return n
+
+    def active_param_count(self) -> int:
+        """Activated params per token (MoE: top_k + shared experts only)."""
+        if self.n_experts == 0:
+            return self.param_count()
+        c, D = self, self.d_model
+        n = self.param_count()
+        for i in range(c.n_layers):
+            if c.is_moe_layer(i):
+                n -= 3 * (c.n_experts - c.top_k) * D * c.moe_d_ff
+        return n
+
+
+class TransformerLM:
+    """The dense decoder. MoE layers, MLA and ``scan_layers`` are refused:
+    they are not ported yet (ROADMAP.md, Queue 1 item 7)."""
+
+    def __init__(self, cfg: TransformerConfig, tp_divisor: int = 1,
+                 q_chunk: int = 4096, scan_layers: bool = False):
+        for what, on in (("MoE layers (n_experts > 0)", cfg.n_experts > 0),
+                         ("MLA attention (mla=True)", cfg.mla),
+                         ("scan_layers=True", scan_layers)):
+            if on:
+                raise NotImplementedError(
+                    f"{what} is not ported to repro_torch yet; see "
+                    "ROADMAP.md, Queue 1 item 7")
+        self.cfg = cfg
+        self.q_chunk = q_chunk
+        self.H = C.pad_heads(cfg.n_heads, tp_divisor)      # padded q/o heads
+        self.Hkv = cfg.n_kv_heads                           # never padded
+
+    # ------------------------------------------------------------- params
+    def _layer_specs_one(self):
+        c, D, dh, H = self.cfg, self.cfg.d_model, self.cfg.dh, self.H
+        p = {
+            "ln1": ParamSpec((D,), ("embed",), init="ones"),
+            "ln2": ParamSpec((D,), ("embed",), init="ones"),
+            "attn": {
+                "wq": ParamSpec((D, H, dh), ("embed", "heads", "head_dim")),
+                "wk": ParamSpec((D, self.Hkv, dh), ("embed", "kv_heads", "head_dim")),
+                "wv": ParamSpec((D, self.Hkv, dh), ("embed", "kv_heads", "head_dim")),
+                "wo": ParamSpec((H, dh, D), ("heads", "head_dim", "embed")),
+            },
+            "mlp": C.swiglu_param_specs(D, c.d_ff),
+        }
+        if c.qk_norm:
+            p["attn"]["q_norm"] = ParamSpec((dh,), ("head_dim",), init="ones")
+            p["attn"]["k_norm"] = ParamSpec((dh,), ("head_dim",), init="ones")
+        return p
+
+    def param_specs(self):
+        c = self.cfg
+        V = c.padded_vocab
+        return {
+            "embed": ParamSpec((V, c.d_model), ("vocab", "embed"), scale=1.0),
+            "ln_f": ParamSpec((c.d_model,), ("embed",), init="ones"),
+            "lm_head": ParamSpec((c.d_model, V), ("embed", "vocab")),
+            "layers": [self._layer_specs_one() for _ in range(c.n_layers)],
+        }
+
+    # ------------------------------------------------------------ forward
+    def _attn(self, p, x, *, positions, cache=None, cache_len=None):
+        """x [B,S,D] -> [B,S,D]; if cache given (decode/prefill-write) the
+        (k,v) for these positions are written at ``cache_len`` into a new
+        cache (the one passed in is left as it was). A write past the
+        cache's length raises; the reference's ``dynamic_update_slice``
+        would clamp it."""
+        c, dh = self.cfg, self.cfg.dh
+        B, S, D = x.shape
+        q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+        k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
+        v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
+        if c.qk_norm:
+            q = C.rms_norm(q, p["q_norm"])
+            k = C.rms_norm(k, p["k_norm"])
+        cos, sin = C.rope_tables(positions, dh, c.rope_theta)
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+        q = C.apply_rope(q, cos, sin)
+        k = C.apply_rope(k, cos, sin)
+
+        window = c.sliding_window or None
+        if cache is None:
+            o = C.dense_attention(q, k, v, causal=True, q_chunk=self.q_chunk,
+                                  window=window)
+        else:
+            start = cache_len if cache_len is not None else 0
+            ck = cache["k"].slice_scatter(k, dim=1, start=start, end=start + S)
+            cv = cache["v"].slice_scatter(v, dim=1, start=start, end=start + S)
+            cache = {"k": ck, "v": cv}
+            o = C.dense_attention(q, ck, cv, causal=True, q_chunk=self.q_chunk,
+                                  q_offset=start, window=window,
+                                  kv_valid_len=start + S)
+        y = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
+        return y, cache
+
+    def _mlp(self, lp, x):
+        return C.swiglu(x, lp["mlp"]["wi_gate"], lp["mlp"]["wi_up"],
+                        lp["mlp"]["wo"])
+
+    def _layer_apply(self, lp, x, *, positions, cache, cache_len):
+        """One transformer block -> (x, new_cache)."""
+        h, nc = self._attn(lp["attn"], C.rms_norm(x, lp["ln1"]),
+                           positions=positions, cache=cache,
+                           cache_len=cache_len)
+        x = x + h
+        x = x + self._mlp(lp, C.rms_norm(x, lp["ln2"]))
+        return x, nc
+
+    def _backbone(self, params, x, *, positions, caches=None, cache_len=None):
+        new_caches = []
+        for i, lp in enumerate(params["layers"]):
+            x, nc = self._layer_apply(
+                lp, x, positions=positions,
+                cache=None if caches is None else caches[i],
+                cache_len=cache_len)
+            new_caches.append(nc)
+        return x, new_caches
+
+    def _embed(self, params, tokens):
+        return C.embed_lookup(params["embed"], tokens)
+
+    def _logits(self, params, x):
+        lg = C.matmul_f32(x, params["lm_head"].to(x.dtype))
+        c = self.cfg
+        if c.padded_vocab != c.vocab:
+            pad = torch.arange(c.padded_vocab, device=lg.device) >= c.vocab
+            lg = lg.masked_fill(pad[None, None], -1e30)
+        return lg
+
+    # -------------------------------------------------------------- entry
+    def prefill(self, params, batch, max_len: int):
+        """batch {'tokens': [B,S] int} -> (logits [B,1,V] f32 of the last
+        position, cache {'layers': [...], 'len': S})."""
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        pos = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+        caches = self.empty_caches(B, max_len, device=tokens.device)
+        x = self._embed(params, tokens)
+        x, caches = self._backbone(params, x, positions=pos, caches=caches,
+                                   cache_len=0)
+        x = C.rms_norm(x, params["ln_f"])
+        logits = self._logits(params, x[:, -1:])
+        return logits, {"layers": caches, "len": S}
+
+    def decode_step(self, params, cache, tokens):
+        """tokens [B,1] -> (logits [B,1,V], cache). ``cache['len']`` is a
+        host int: no device value is read back per layer."""
+        B = tokens.shape[0]
+        ln = cache["len"]
+        pos = torch.full((B, 1), ln, device=tokens.device)
+        x = self._embed(params, tokens)
+        x, caches = self._backbone(params, x, positions=pos,
+                                   caches=cache["layers"], cache_len=ln)
+        x = C.rms_norm(x, params["ln_f"])
+        return self._logits(params, x), {"layers": caches, "len": ln + 1}
+
+    # -------------------------------------------------------------- cache
+    def empty_caches(self, B, S, device="cuda"):
+        c = self.cfg
+        shape = (B, S, self.Hkv, c.dh)
+        return [{"k": torch.zeros(shape, dtype=C.COMPUTE_DTYPE, device=device),
+                 "v": torch.zeros(shape, dtype=C.COMPUTE_DTYPE, device=device)}
+                for _ in range(c.n_layers)]
+
+    # ----------------------------------------------------------- counting
+    def param_count(self):
+        return self.cfg.param_count()
+
+    def active_param_count(self):
+        return self.cfg.active_param_count()

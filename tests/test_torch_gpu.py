@@ -407,3 +407,64 @@ def test_prefix_cache_on_card_matches_cpu(cuda):
     assert got[0] == got[1]
     assert caches[0].stats() == caches[1].stats()
     assert bloom_probe.launches == before + 2 * len(tiers)
+
+
+def _chip_smoke():
+    import importlib.util
+    import pathlib
+    root = pathlib.Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  root / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+def test_llama_two_layers_card_matches_cpu(cuda):
+    """llama3.2-1b FULL widths cut to 2 layers, f32 with TF32 off, the same
+    numpy weights on the card and on the CPU: prefill and 4 decode steps
+    within 1e-3 of the largest logit."""
+    import dataclasses
+    from repro_torch.configs.llama3_2_1b import FULL
+    from repro_torch.models import common as MC
+    from repro_torch.models.transformer import TransformerLM
+    cs = _chip_smoke()
+    m = TransformerLM(dataclasses.replace(FULL, n_layers=2))
+    np_params = cs.numpy_params(m.param_specs(), seed=1)
+    prompt = np.random.default_rng(2).integers(0, FULL.vocab, 64)
+    tf32, was = torch.backends.cuda.matmul.allow_tf32, MC.COMPUTE_DTYPE
+    torch.backends.cuda.matmul.allow_tf32 = False
+    MC.set_compute_dtype(torch.float32)
+    try:
+        got = [cs.forced_logits(m, MC.params_from_numpy(np_params, d), prompt,
+                                [1, 2, 3, 4], 128, d) for d in (cuda, "cpu")]
+    finally:
+        MC.set_compute_dtype(was)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    for a, b in zip(*got):
+        assert np.abs(a - b).max() <= cs.CARD_CPU_REL * np.abs(b).max()
+
+
+def test_serve_engine_on_card_matches_cpu(cuda):
+    """The smoke llama at bf16 served on the card and on the CPU by
+    ``chip_smoke.serve_cell``: no fault, equal stats, one ``bloom_probe``
+    launch a tier a run on the card, none on the CPU."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import common as MC
+    cs = _chip_smoke()
+    m = get_arch(cs.LM_ARCH).model(smoke=True)
+    p = MC.init_from_specs(m.param_specs(),
+                           torch.Generator().manual_seed(0), "cpu")
+
+    def reset():
+        bloom_probe.launches = 0
+
+    kw = dict(prompt_len=16, max_new=4, max_len=32)
+    card = cs.serve_cell(m, p, cuda, reset=reset,
+                         read=lambda: bloom_probe.launches, **kw)
+    cpu = cs.serve_cell(m, p, "cpu", reset=reset,
+                        read=lambda: bloom_probe.launches, **kw)
+    assert cs.serve_faults(card, cpu) == []
+    assert [r["launches"] for r in card["runs"]] == [3, 3]
+    assert card["fresh_launches"] == 3
+    assert [r["launches"] for r in cpu["runs"]] == [0, 0]
