@@ -112,6 +112,22 @@ Phases, one line each; any failure exits non-zero and prints no result:
              then a 1,000,000-key build with the chained and bloom
              backups (training and query times, bits, fpr, 0 false
              negatives)
+11. train    the training path (``train_run``, ``train_step_parts``,
+             ``supervised_run``): ``launch/train.build_trainer`` over
+             llama3.2-1b FULL (bf16 compute, f32 master weights and AdamW
+             state, remat) at seq 4,096, batch 2, 8 calls of its
+             ``step_fn``: the loss finite and falling, host ms a step,
+             tokens/s, peak memory, the device profile of one step beside
+             its FLOP and AdamW-byte bounds; the widths cut to 2 layers at
+             f32 (TF32 off), one train step on the card against the CPU
+             from the same numpy params and AdamW state (loss, every
+             gradient leaf, every param after AdamW); ``ft.Supervisor``
+             over the smoke trainer on the card, 12 steps, a checkpoint
+             every 4, a failure injected at step 6: the resumed losses
+             equal an uninterrupted run's bit for bit (torch's
+             deterministic algorithms on), the checkpoint's Bloom filter
+             skips stats, the pipeline drops what a fresh host pipeline
+             drops; no kernel launched
 
 Then one JSON line of kernel records, the card line and the result line.
 Launch counts are set to 0 just before each path is driven and read just
@@ -129,6 +145,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import replace
 
@@ -628,10 +645,153 @@ def learned_faults(rows: list[dict]) -> list[str]:
     return faults
 
 
+# -- phase 11: the training path (llama3.2-1b) -----------------------------
+# the full-width run: train_4k's sequence, its global batch of 256 cut to
+# 2 (at 256 x 4,096 the f32 logits alone would be 537 GB)
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4096, 2, 8
+# one train step, the card against the CPU at f32 (TF32 off), FULL widths
+# cut to 2 layers, batch 1, seq 128: loss (relative), each gradient leaf
+# (relative L2), each param leaf after AdamW (relative L2)
+TRAIN_CPU_SEQ, TRAIN_LOSS_REL, TRAIN_GRAD_REL, TRAIN_PARAM_REL = \
+    128, 1e-5, 1e-4, 1e-5
+# the supervisor at smoke width: 12 steps, a save every 4, a failure at 6
+SUP_STEPS, SUP_SAVE_EVERY, SUP_FAIL_AT = 12, 4, (6,)
+BF16_FLOPS_PER_S = 989e12          # H100 SXM data sheet, dense
+F32_FLOPS_PER_S = 67e12            # outside the tensor cores
+
+
+def train_flops(cfg, batch: int, seq: int) -> tuple[float, float]:
+    """(matmul, attention) FLOPs of one forward pass of a dense config
+    over batch x seq tokens: 2 per weight of each projection, MLP and the
+    LM head a token; scores and the probabilities' product 2 x 2 x seq x
+    heads x head_dim a token and layer (the q-chunked attention computes
+    every score and masks the future)."""
+    D, dh, H, Hkv = cfg.d_model, cfg.dh, cfg.n_heads, cfg.n_kv_heads
+    per_layer = D * H * dh * 2 + D * Hkv * dh * 2 + 3 * D * cfg.d_ff
+    tokens = batch * seq
+    mm = 2.0 * tokens * (cfg.n_layers * per_layer + D * cfg.padded_vocab)
+    attn = 4.0 * tokens * seq * H * dh * cfg.n_layers
+    return mm, attn
+
+
+def train_run(device, *, smoke: bool, seq_len: int, batch: int,
+              n_steps: int) -> dict:
+    """``launch/train.build_trainer`` for llama3.2-1b, then ``n_steps``
+    calls of its ``step_fn`` from a fresh state: losses, host ms a step
+    (``float(loss)`` waits for the device), the last state, the model and
+    the pipeline."""
+    from repro_torch.launch.train import build_trainer
+    init_state, step_fn, model = build_trainer(
+        LM_ARCH, smoke=smoke, device=device, seq_len=seq_len, batch=batch)
+    state = init_state()
+    losses, ms = [], []
+    for step in range(n_steps):
+        t = time.perf_counter()
+        state, loss = step_fn(state, step)
+        ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(loss)
+    return {"losses": losses, "ms": ms, "state": state, "model": model,
+            "data": step_fn.data}
+
+
+def train_faults(losses: list) -> list[str]:
+    faults = []
+    if not all(math.isfinite(x) for x in losses):
+        faults.append(f"a loss is not finite: {losses}")
+    elif not losses[-1] < losses[0]:
+        faults.append(f"the loss did not fall: {losses}")
+    return faults
+
+
+def carried_opt_state(np_params, step: int) -> dict:
+    """A numpy AdamW state to continue from: m = 0.01 p, v = 1e-6 + m^2,
+    ``step`` int32. With v > 0 the update is a smooth function of the
+    gradient; from zero moments the first update is lr * sign(g), which a
+    gradient element near 0 can flip between two summation orders."""
+    from repro_torch.models.common import tree_map
+    m = tree_map(lambda p: np.float32(0.01) * p, np_params)
+    return {"m": m, "v": tree_map(lambda a: np.float32(1e-6) + a * a, m),
+            "step": np.int32(step)}
+
+
+def train_step_parts(model, np_params, np_opt, tokens, device):
+    """One train step of ``model`` on ``device`` from numpy params and
+    AdamW state, next-token labels of ``tokens`` [B, S+1]: (loss, each
+    gradient leaf, each param leaf after AdamW) as numpy."""
+    import torch
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models.common import params_from_numpy, tree_leaves
+    from repro_torch.optim.adamw import AdamWConfig, adamw_step
+    params = params_from_numpy(np_params, device)
+    opt = params_from_numpy(np_opt, device)
+    t = torch.from_numpy(np.asarray(tokens, np.int32)).to(device)
+    loss, grads = loss_and_grads(model, params,
+                                 {"tokens": t[:, :-1], "labels": t[:, 1:]})
+    with torch.no_grad():
+        new_p, _, _ = adamw_step(AdamWConfig(), params, grads, opt)
+    return (float(loss), [g.cpu().numpy() for g in tree_leaves(grads)],
+            [p.cpu().numpy() for p in tree_leaves(new_p)])
+
+
+def rel_l2(a: np.ndarray, b: np.ndarray) -> float:
+    """||a - b|| / ||b|| (0 where both are 0)."""
+    d = float(np.linalg.norm((a - b).ravel()))
+    n = float(np.linalg.norm(b.ravel()))
+    return d / n if n else d
+
+
+def supervised_run(device, ckpt_dir: str, *, fail_at=()) -> dict:
+    """The smoke trainer under ``ft.Supervisor``: SUP_STEPS steps, a
+    checkpoint every SUP_SAVE_EVERY, failures injected at ``fail_at``."""
+    from repro_torch.ft.supervisor import FailureInjector, Supervisor
+    from repro_torch.launch.train import build_trainer
+    init_state, step_fn, _ = build_trainer(LM_ARCH, smoke=True, device=device)
+    sup = Supervisor(ckpt_dir, save_every=SUP_SAVE_EVERY)
+    res = sup.run(init_state=init_state, step_fn=step_fn, n_steps=SUP_STEPS,
+                  injector=FailureInjector(tuple(fail_at)))
+    return {"res": res, "stat_skipped": sup.store.stat_skipped,
+            "stat_calls": sup.store.stat_calls,
+            "n_dropped": step_fn.data.n_dropped, "data": step_fn.data}
+
+
+def supervisor_faults(failed: dict, clean: dict) -> list[str]:
+    """What a run with one injected failure gets wrong against an
+    uninterrupted one: restarts other than 1 and 0; losses other than the
+    clean run's up to the failure, then again from the last checkpoint
+    before it (bit for bit); no chunk stat skipped by the Bloom filter;
+    documents dropped other than a fresh pipeline drops over the same
+    steps on the host."""
+    from repro_torch.data.pipeline import SyntheticLMData
+    fail = SUP_FAIL_AT[0]
+    resume = fail // SUP_SAVE_EVERY * SUP_SAVE_EVERY
+    want = clean["res"].losses[:fail] + clean["res"].losses[resume:]
+    faults = []
+    if (failed["res"].n_restarts, clean["res"].n_restarts) != (1, 0):
+        faults.append(f"restarts {failed['res'].n_restarts} and "
+                      f"{clean['res'].n_restarts}, not 1 and 0")
+    if failed["res"].losses != want:
+        faults.append(f"losses {failed['res'].losses} != the uninterrupted "
+                      f"run's, resumed at step {resume}: {want}")
+    if not failed["stat_skipped"] > 0:
+        faults.append("the chunk filter skipped no existence check")
+    host = SyntheticLMData(failed["data"].cfg)
+    for step in range(SUP_STEPS):
+        host.batch(step)
+    if not failed["n_dropped"] == clean["n_dropped"] == host.n_dropped:
+        faults.append(f"documents dropped {failed['n_dropped']} (failed), "
+                      f"{clean['n_dropped']} (clean), {host.n_dropped} "
+                      f"(host pipeline)")
+    return faults
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
         fail("torch sees no CUDA device; this script runs only on a GPU")
+    # cuBLAS is deterministic on one stream with a fixed workspace; phase
+    # 11 turns on torch's deterministic algorithms, which ask for it to be
+    # named before the first cuBLAS call (32 MiB, torch's default on sm_90)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     sys.path.insert(0, os.path.join(ROOT, "src"))
     try:
         from repro_torch.core import hashing as H, theory
@@ -665,6 +825,9 @@ def main() -> None:
         from repro_torch.core.learned import (LearnedFilter,
                                               synth_url_dataset,
                                               train_score_model)
+        from repro_torch.data.pipeline import SyntheticLMData
+        from repro_torch.launch.steps import make_train_step
+        from repro_torch.optim.adamw import AdamWConfig
         from repro_torch.models import common as MC
         from repro_torch.models.transformer import TransformerLM
         from repro_torch.query import Catalog, Member, Pipeline, RangeFence
@@ -2084,6 +2247,125 @@ def main() -> None:
           f"{1 - big['chained']['bits'] / big['bloom']['bits']:.1%} of the "
           f"bloom backup's bits; 0 false negatives | {card} | total "
           f"{time.monotonic() - t_start:.0f} s", flush=True)
+
+    # -- 11. the training path: llama3.2-1b FULL trains on the card --------
+    # (a) build_trainer at full width, bf16 compute over f32 master
+    # weights, seq 4,096, batch 2: 8 calls of its step_fn
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    run = train_run(dev, smoke=False, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH,
+                    n_steps=TRAIN_STEPS)
+    train_s = time.perf_counter() - t
+    faults = train_faults(run["losses"])
+    check(not faults, f"train at full width: {faults}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    model, state = run["model"], run["state"]
+    cfg = model.cfg
+    n_params = sum(a.numel() for a in MC.tree_leaves(state["params"]))
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    step_ms = statistics.median(run["ms"][1:])
+    mm_flops, attn_flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    flop_ms = 3 * (mm_flops + attn_flops) / BF16_FLOPS_PER_S * 1e3
+    attn_f32_ms = 3 * attn_flops / F32_FLOPS_PER_S * 1e3
+    adamw_ms = 7 * 4 * n_params / HBM_BYTES_PER_S * 1e3
+    b0 = SyntheticLMData(run["data"].cfg).batch(0)
+    b0 = {k: torch.from_numpy(v).to(dev) for k, v in b0.items()}
+    train_step = make_train_step(model, AdamWConfig())
+    rows = device_rows(lambda: train_step(state["params"], state["opt"], b0))
+    print(f"train: {LM_ARCH} FULL ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}; {n_params} f32 parameters from a "
+          f"seed on the card) through launch/train.build_trainer, remat, "
+          f"q_chunk 512, bf16 compute, AdamW f32 | seq {TRAIN_SEQ}, batch "
+          f"{TRAIN_BATCH} (train_4k's 256 cut to {TRAIN_BATCH}), "
+          f"{TRAIN_STEPS} steps in {train_s:.1f} s: loss "
+          f"{[round(x, 4) for x in run['losses']]} | host ms a step "
+          f"{[round(x, 1) for x in run['ms']]} (step 0 warms up), median of "
+          f"steps 1-{TRAIN_STEPS - 1} {step_ms:.1f} ms = "
+          f"{tokens / step_ms * 1e3:.0f} tokens/s | peak device memory "
+          f"allocated {peak_gb:.2f} GB | {card}", flush=True)
+    print(f"train step profiled: {busy(device_totals(rows), step_ms)}; top "
+          f"device operations: {device_top(rows, 8)} | bound: "
+          f"{3 * (mm_flops + attn_flops) / 1e12:.1f} TFLOP a step (forward "
+          f"and backward, the remat recompute not counted; attention "
+          f"{3 * attn_flops / 1e12:.1f} of it) over {BF16_FLOPS_PER_S / 1e12:.0f}"
+          f" TFLOP/s bf16 = {flop_ms:.1f} ms; the attention's f32 products "
+          f"alone over {F32_FLOPS_PER_S / 1e12:.0f} TFLOP/s = "
+          f"{attn_f32_ms:.1f} ms; AdamW reads p, g, m, v and writes p, m, v "
+          f"(28 B a parameter, {28 * n_params / 1e9:.1f} GB) over 3.35 TB/s "
+          f"= {adamw_ms:.2f} ms | {card}", flush=True)
+    del run, state, train_step, rows, b0
+    # (b) the same widths cut to 2 layers at f32 (TF32 off): one train
+    # step on the card against the port on the CPU, from the same numpy
+    # params and a carried AdamW state
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    MC.set_compute_dtype(torch.float32)
+    small = TransformerLM(replace(cfg, n_layers=2), remat=True, q_chunk=512)
+    np_params = numpy_params(small.param_specs(), seed=1)
+    np_opt = carried_opt_state(np_params, step=10)
+    toks = np.random.default_rng(11).integers(
+        0, cfg.vocab, (1, TRAIN_CPU_SEQ + 1))
+    t = time.perf_counter()
+    on_card = train_step_parts(small, np_params, np_opt, toks, dev)
+    card_s = time.perf_counter() - t
+    t = time.perf_counter()
+    on_cpu = train_step_parts(small, np_params, np_opt, toks, "cpu")
+    cpu_s = time.perf_counter() - t
+    MC.set_compute_dtype(torch.bfloat16)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    del np_params, np_opt
+    loss_rel = abs(on_card[0] - on_cpu[0]) / abs(on_cpu[0])
+    grad_rel = max(rel_l2(a, b) for a, b in zip(on_card[1], on_cpu[1]))
+    param_rel = max(rel_l2(a, b) for a, b in zip(on_card[2], on_cpu[2]))
+    check(loss_rel <= TRAIN_LOSS_REL and grad_rel <= TRAIN_GRAD_REL
+          and param_rel <= TRAIN_PARAM_REL,
+          f"train step, card != CPU at 2 layers, f32: loss {loss_rel}, "
+          f"gradients {grad_rel}, params {param_rel}")
+    print(f"train card vs CPU: {LM_ARCH} FULL widths cut to 2 layers, f32, "
+          f"TF32 off, numpy params and AdamW state (step 10), batch 1, seq "
+          f"{TRAIN_CPU_SEQ}: loss {on_card[0]:.6f} vs {on_cpu[0]:.6f} "
+          f"(relative {loss_rel:.3g} <= {TRAIN_LOSS_REL}), gradient leaves "
+          f"relative L2 max {grad_rel:.3g} (<= {TRAIN_GRAD_REL}), params "
+          f"after AdamW max {param_rel:.3g} (<= {TRAIN_PARAM_REL}) over "
+          f"{len(on_cpu[1])} leaves | card {card_s:.1f} s, CPU {cpu_s:.1f} s "
+          f"(uploads included) | {card}", flush=True)
+    del on_card, on_cpu, small
+    # (c) the supervisor at smoke width on the card (bf16, as main runs
+    # there): an injected failure resumes bit for bit, under torch's
+    # deterministic algorithms (the embedding's scatter sorts its indices)
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t = time.perf_counter()
+            clean = supervised_run(dev, os.path.join(tmp, "clean"))
+            failed = supervised_run(dev, os.path.join(tmp, "failed"),
+                                    fail_at=SUP_FAIL_AT)
+            sup_s = time.perf_counter() - t
+    finally:
+        torch.use_deterministic_algorithms(False)
+    faults = supervisor_faults(failed, clean)
+    check(not faults, f"supervisor: {faults}")
+    print(f"train supervisor: {LM_ARCH} smoke, bf16 on the card, "
+          f"{SUP_STEPS} steps, a checkpoint every {SUP_SAVE_EVERY}, a "
+          f"failure injected at step {SUP_FAIL_AT[0]}: restarts "
+          f"{failed['res'].n_restarts}, losses after the restart == the "
+          f"uninterrupted run's bit for bit ({len(failed['res'].losses)} "
+          f"steps run, {clean['res'].losses[-1]:.6f} at the last) | chunk "
+          f"stats skipped by the Bloom filter {failed['stat_skipped']}, "
+          f"made {failed['stat_calls']} | documents dropped "
+          f"{failed['n_dropped']} == a host pipeline's over the same steps "
+          f"| both runs {sup_s:.1f} s | {card}", flush=True)
+    # (d) the training path launches none of the seven kernels
+    train_launches = {name: fn.launches for name, fn in kernels.items()}
+    check(not any(train_launches.values()),
+          f"the training path launched {train_launches}")
+    print(f"train kernels: launches over phase 11 {json.dumps(train_launches)}"
+          f" (the dedup and checkpoint filters are host numpy Bloom queries) "
+          f"| {card} | total {time.monotonic() - t_start:.0f} s", flush=True)
+
     q9["bloom_probe"] += sum(l["bloom_probe"] for l in pc10)
     q9["bloom_gather"] += sum(l["gather"] for l in pc10)
     for r in records:

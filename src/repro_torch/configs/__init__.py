@@ -3,7 +3,8 @@ the port has. Each arch module defines FULL (paper-exact) and SMOKE
 (reduced, same family) configs. The reference's other nine archs wait
 (ROADMAP.md, Queue 1 item 7).
 """
-from .base import ArchDef, Shape, SHAPES, SMOKE_SHAPES, applicable_shapes
+from .base import (ArchDef, Shape, SHAPES, SMOKE_SHAPES, applicable_shapes,
+                   input_specs)
 from . import llama3_2_1b
 
 _MODULES = [llama3_2_1b]

@@ -8,13 +8,16 @@ Shape cells (assigned):
     long_500k    seq 524,288 global_batch 1     -> serve_step; sub-quadratic
                                                    archs only (SSM/hybrid)
 
-The reference's ``input_specs`` (JAX ``ShapeDtypeStruct`` stand-ins for
-its dry-run) waits with ``launch/dryrun.py`` (ROADMAP.md, Queue 1 item 8).
+``input_specs`` describes every model input of a cell as ``meta`` tensors
+(shape and dtype, no memory), the port's stand-in for the reference's
+``ShapeDtypeStruct``s.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Callable
+
+import torch
 
 
 @dataclass(frozen=True)
@@ -65,3 +68,35 @@ def applicable_shapes(arch: ArchDef) -> list[str]:
             continue          # encoder-only archs have no decode step
         out.append(n)
     return out
+
+
+def _tok(B, S):
+    return torch.empty((B, S), dtype=torch.int32, device="meta")
+
+
+def input_specs(arch: ArchDef, shape_name: str, smoke: bool = False,
+                model=None) -> dict:
+    """``meta`` tensors standing in for every input of (arch, shape).
+
+    train:   {'batch': {'tokens','labels'}}
+    prefill: {'batch': {'tokens'}}
+    decode:  {'cache': <model.cache_specs(B, S)>, 'tokens': (B,1)}
+
+    The port's archs have no modality inputs; an arch with them is
+    refused until its family is ported.
+    """
+    if arch.modality_inputs is not None:
+        raise NotImplementedError(
+            f"{arch.arch_id}: modality inputs are not ported to repro_torch "
+            "yet; see ROADMAP.md, Queue 1 item 7")
+    table = SMOKE_SHAPES if smoke else SHAPES
+    s = table[shape_name]
+    m = model if model is not None else arch.model(smoke=smoke)
+    if s.kind == "train":
+        return {"batch": {"tokens": _tok(s.batch, s.seq),
+                          "labels": _tok(s.batch, s.seq)}}
+    if s.kind == "prefill":
+        return {"batch": {"tokens": _tok(s.batch, s.seq)}}
+    # decode: one new token against a cache of length seq
+    return {"cache": m.cache_specs(s.batch, s.seq),
+            "tokens": _tok(s.batch, 1)}

@@ -1,5 +1,6 @@
 """Shared model substrate, its dense part: param specs, norms, rotary
-embeddings, q-chunked softmax attention and the SwiGLU MLP.
+embeddings, q-chunked softmax attention, the SwiGLU MLP and the
+next-token cross entropy.
 
 Conventions, as in the reference (``repro/models/common.py``):
 
@@ -14,8 +15,12 @@ Conventions, as in the reference (``repro/models/common.py``):
 - The reference's ``shard_activation`` calls are no-ops without a mesh;
   the port has no ``sharding/`` yet and leaves them out.
 
-MoE (``moe_block``) and the embedding's training VJP wait with training
-and the other model families (ROADMAP.md, Queue 1 item 7).
+- Training differentiates these functions with torch autograd. Two
+  carry a hand-written backward that keeps the reference's dtypes: the
+  embedding (its custom VJP) and ``matmul_f32`` on the card.
+
+MoE (``moe_block``) waits with the other model families (ROADMAP.md,
+Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -53,6 +58,13 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_unflatten(tree, leaves):
+    """A tree shaped like ``tree`` whose leaves are ``leaves``, in
+    ``tree_leaves`` order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
 def init_from_specs(specs, generator: torch.Generator, device="cuda"):
     """Materialize a tree of ParamSpec on ``device``, normal leaves drawn
     from ``generator`` (a generator of that device) with std
@@ -73,8 +85,10 @@ def init_from_specs(specs, generator: torch.Generator, device="cuda"):
 
 def params_from_numpy(tree, device="cuda"):
     """A tree of numpy arrays (the reference's ``jax.tree.map(np.asarray,
-    params)``) as the port's params: same keys, shapes and values, on
-    ``device``."""
+    params)``) as the port's params: same keys, shapes, dtypes and values,
+    on ``device``. The reference's AdamW state carries the same way
+    (``m`` and ``v`` as params, ``step`` a 0-d int32), so a JAX train
+    state continues in the port."""
     return tree_map(lambda a: torch.from_numpy(np.array(a)).to(device), tree)
 
 
@@ -92,11 +106,35 @@ def set_compute_dtype(dtype) -> None:
     COMPUTE_DTYPE = dtype
 
 
+class _EmbedLookup(torch.autograd.Function):
+    """The reference's ``_embed_lookup`` custom VJP: the forward gathers
+    rows (then casts to the compute dtype: the same values as casting the
+    table first); the backward scatter-adds ``dx`` into zeros of ``dx``'s
+    own dtype (bf16 at bf16 compute) and only then casts to the table's
+    dtype. Autograd's own gradient of the gather would accumulate in the
+    table's f32. On the card the scatter uses atomics unless
+    ``torch.use_deterministic_algorithms(True)`` is on, which makes
+    ``index_add_`` sort its indices and sum each row in one order."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
+        return torch.nn.functional.embedding(tokens, table).to(COMPUTE_DTYPE)
+
+    @staticmethod
+    def backward(ctx, dx):
+        (tokens,) = ctx.saved_tensors
+        d = ctx.table_shape[1]
+        d_table = torch.zeros(ctx.table_shape, dtype=dx.dtype, device=dx.device)
+        d_table.index_add_(0, tokens.reshape(-1), dx.reshape(-1, d))
+        return d_table.to(ctx.table_dtype), None
+
+
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """The rows of ``table`` at ``tokens``, in the compute dtype. The
-    reference casts the table before its gather; gathering first gives
-    the same values without casting every row."""
-    return torch.nn.functional.embedding(tokens, table).to(COMPUTE_DTYPE)
+    """The rows of ``table`` at ``tokens``, in the compute dtype, with the
+    reference's embedding gradient (``_EmbedLookup``)."""
+    return _EmbedLookup.apply(table, tokens)
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
@@ -122,17 +160,57 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     return out.to(x.dtype)
 
 
+class _MatmulF32(torch.autograd.Function):
+    """``a @ b`` of two bf16 (or f16) CUDA tensors with an f32 result, and
+    the transpose of the reference's ``preferred_element_type=f32``
+    einsum as its backward: the f32 cotangent rounded to the inputs'
+    dtype, products of that dtype summed in f32, each gradient in its
+    input's dtype (the TPU's default-precision dot)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        return out.reshape(*a.shape[:-1], b.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1]).to(a.dtype)
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = (g2 @ b.t()).reshape(a.shape)
+        if ctx.needs_input_grad[1]:
+            db = a.reshape(-1, a.shape[-1]).t() @ g2
+        return da, db
+
+
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` (a [..., K], b [K, N]) with an f32 result: products of the
     inputs' dtype summed in f32, the reference's
     ``preferred_element_type=jnp.float32``. On the card a bf16 product
-    writes f32 directly (``out_dtype``) rather than widening ``b``."""
+    writes f32 directly (``out_dtype``) rather than widening ``b``, and
+    its backward is ``_MatmulF32``'s."""
     if a.dtype == torch.float32:
         return a @ b
     if a.is_cuda:
-        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
-        return out.reshape(*a.shape[:-1], b.shape[-1])
+        return _MatmulF32.apply(a, b)
     return a.float() @ b.float()
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean next-token cross entropy; logits [B,S,V] any float, labels
+    int. With ``mask``, the mean over the positions it marks (at least
+    one)."""
+    lg = logits.float()
+    lse = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is None:
+        return torch.mean(nll)
+    m = mask.float()
+    return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -1,19 +1,23 @@
 """Decoder-only transformer LM, its dense path (llama3.2-1b and the other
 dense/GQA archs of the reference's ``repro/models/transformer.py``).
 
-Layers are unrolled; ``prefill`` and ``decode_step`` (serve) share one
-parameter tree with the reference's keys and shapes. Plain functions of
-a params dict, eager torch: the reference's einsums become torch matmuls
-on the same dtypes, the KV cache update stays functional (a new cache
-tensor per step, as ``dynamic_update_slice`` returns), and the cache
-length is a host int. MoE, MLA and scanned layers wait (ROADMAP.md,
-Queue 1 item 7); ``loss`` comes with training.
+Layers are unrolled; ``loss`` (train), ``prefill`` and ``decode_step``
+(serve) share one parameter tree with the reference's keys and shapes.
+Plain functions of a params dict, eager torch: the reference's einsums
+become torch matmuls on the same dtypes, the KV cache update stays
+functional (a new cache tensor per step, as ``dynamic_update_slice``
+returns), and the cache length is a host int. ``remat`` recomputes each
+layer in the backward (``torch.utils.checkpoint``, the reference's
+per-layer ``jax.checkpoint``): the same values, one layer's activations
+alive at a time. MoE, MLA and scanned layers wait (ROADMAP.md, Queue 1
+item 7).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import common as C
 from .common import ParamSpec
@@ -96,7 +100,8 @@ class TransformerLM:
     they are not ported yet (ROADMAP.md, Queue 1 item 7)."""
 
     def __init__(self, cfg: TransformerConfig, tp_divisor: int = 1,
-                 q_chunk: int = 4096, scan_layers: bool = False):
+                 q_chunk: int = 4096, remat: bool = False,
+                 scan_layers: bool = False):
         for what, on in (("MoE layers (n_experts > 0)", cfg.n_experts > 0),
                          ("MLA attention (mla=True)", cfg.mla),
                          ("scan_layers=True", scan_layers)):
@@ -106,6 +111,7 @@ class TransformerLM:
                     "ROADMAP.md, Queue 1 item 7")
         self.cfg = cfg
         self.q_chunk = q_chunk
+        self.remat = remat                                  # per-layer rematerialization
         self.H = C.pad_heads(cfg.n_heads, tp_divisor)      # padded q/o heads
         self.Hkv = cfg.n_kv_heads                           # never padded
 
@@ -189,6 +195,13 @@ class TransformerLM:
     def _backbone(self, params, x, *, positions, caches=None, cache_len=None):
         new_caches = []
         for i, lp in enumerate(params["layers"]):
+            if caches is None and self.remat:
+                def f(lp, x):
+                    return self._layer_apply(lp, x, positions=positions,
+                                             cache=None, cache_len=None)[0]
+                x = checkpoint(f, lp, x, use_reentrant=False)
+                new_caches.append(None)
+                continue
             x, nc = self._layer_apply(
                 lp, x, positions=positions,
                 cache=None if caches is None else caches[i],
@@ -208,6 +221,18 @@ class TransformerLM:
         return lg
 
     # -------------------------------------------------------------- entry
+    def loss(self, params, batch):
+        """batch {'tokens', 'labels': [B,S] int, optional 'loss_mask'} ->
+        the mean next-token cross entropy (f32 scalar)."""
+        tokens, labels = batch["tokens"], batch["labels"]
+        B, S = tokens.shape
+        pos = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+        x = self._embed(params, tokens)
+        x, _ = self._backbone(params, x, positions=pos)
+        x = C.rms_norm(x, params["ln_f"])
+        return C.softmax_xent(self._logits(params, x), labels,
+                              batch.get("loss_mask"))
+
     def prefill(self, params, batch, max_len: int):
         """batch {'tokens': [B,S] int} -> (logits [B,1,V] f32 of the last
         position, cache {'layers': [...], 'len': S})."""
@@ -241,6 +266,12 @@ class TransformerLM:
         return [{"k": torch.zeros(shape, dtype=C.COMPUTE_DTYPE, device=device),
                  "v": torch.zeros(shape, dtype=C.COMPUTE_DTYPE, device=device)}
                 for _ in range(c.n_layers)]
+
+    def cache_specs(self, B, S):
+        """The decode cache's shapes and dtypes as ``meta`` tensors (no
+        memory): the reference's ``jax.eval_shape`` stand-in."""
+        return {"layers": self.empty_caches(B, S, device="meta"),
+                "len": torch.empty((), dtype=torch.int32, device="meta")}
 
     # ----------------------------------------------------------- counting
     def param_count(self):

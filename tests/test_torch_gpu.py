@@ -468,3 +468,93 @@ def test_serve_engine_on_card_matches_cpu(cuda):
     assert [r["launches"] for r in card["runs"]] == [3, 3]
     assert card["fresh_launches"] == 3
     assert [r["launches"] for r in cpu["runs"]] == [0, 0]
+
+
+def test_matmul_f32_backward_on_card(cuda):
+    """``matmul_f32`` of bf16 operands on the card: an f32 result equal to
+    the f32 product of the same values (within f32 summation order), and
+    its backward the transpose of the reference's einsum: the cotangent
+    rounded to bf16, bf16 gradients within one bf16 rounding of the f32
+    products, the f32 weight's gradient through the cast in f32."""
+    from repro_torch.models import common as MC
+    g = torch.Generator(cuda).manual_seed(0)
+    x = torch.randn(2, 64, 256, generator=g, device=cuda).to(torch.bfloat16)
+    w = torch.randn(256, 384, generator=g, device=cuda) * 0.05
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    out = MC.matmul_f32(x, w.to(torch.bfloat16))
+    assert out.dtype == torch.float32 and out.shape == (2, 64, 384)
+    want = x.detach().float() @ w.detach().to(torch.bfloat16).float()
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+    cot = torch.randn(2, 64, 384, generator=g, device=cuda)
+    dx, dw = torch.autograd.grad(out, (x, w), cot)
+    assert dx.dtype == torch.bfloat16 and dw.dtype == torch.float32
+    c16 = cot.to(torch.bfloat16).float().reshape(-1, 384)
+    want_dx = (c16 @ w.detach().to(torch.bfloat16).float().t()).reshape(x.shape)
+    want_dw = x.detach().float().reshape(-1, 256).t() @ c16
+    torch.testing.assert_close(dx.float(), want_dx, rtol=2 ** -7, atol=1e-3)
+    torch.testing.assert_close(dw, want_dw, rtol=2 ** -7, atol=1e-3)
+
+
+def test_train_step_two_layers_card_matches_cpu(cuda):
+    """llama3.2-1b FULL widths cut to 2 layers, f32 with TF32 off: one
+    train step (``chip_smoke.train_step_parts``: loss, gradients, AdamW
+    from a carried state) on the card against the CPU, within phase 11's
+    tolerances."""
+    import dataclasses
+    from repro_torch.configs.llama3_2_1b import FULL
+    from repro_torch.models import common as MC
+    from repro_torch.models.transformer import TransformerLM
+    cs = _chip_smoke()
+    m = TransformerLM(dataclasses.replace(FULL, n_layers=2), remat=True,
+                      q_chunk=512)
+    np_p = cs.numpy_params(m.param_specs(), seed=1)
+    np_o = cs.carried_opt_state(np_p, step=10)
+    toks = np.random.default_rng(2).integers(0, FULL.vocab, (1, 65))
+    tf32, was = torch.backends.cuda.matmul.allow_tf32, MC.COMPUTE_DTYPE
+    torch.backends.cuda.matmul.allow_tf32 = False
+    MC.set_compute_dtype(torch.float32)
+    try:
+        card, cpu = (cs.train_step_parts(m, np_p, np_o, toks, d)
+                     for d in (cuda, "cpu"))
+    finally:
+        MC.set_compute_dtype(was)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert abs(card[0] - cpu[0]) <= cs.TRAIN_LOSS_REL * abs(cpu[0])
+    assert max(cs.rel_l2(a, b) for a, b in zip(card[1], cpu[1])) <= \
+        cs.TRAIN_GRAD_REL
+    assert max(cs.rel_l2(a, b) for a, b in zip(card[2], cpu[2])) <= \
+        cs.TRAIN_PARAM_REL
+
+
+def test_smoke_train_step_is_deterministic_on_card(cuda):
+    """The smoke llama's bf16 loss and gradients twice on the card under
+    ``torch.use_deterministic_algorithms(True)``: bit for bit the same
+    (the embedding's scatter sorts its repeated tokens). ``warn_only``:
+    torch asks cuBLAS's workspace to be fixed by an environment variable
+    before cuBLAS starts; on one stream its products repeat anyway, which
+    this test checks."""
+    import warnings
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import common as MC
+    m = get_arch("llama3.2-1b").model(smoke=True, remat=True, q_chunk=512)
+    p = MC.init_from_specs(m.param_specs(),
+                           torch.Generator(cuda).manual_seed(0), cuda)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 8, (2, 33)).astype(np.int32)).to(cuda)      # repeated tokens
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    was = MC.COMPUTE_DTYPE
+    MC.set_compute_dtype(torch.bfloat16)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            runs = [loss_and_grads(m, p, batch) for _ in range(2)]
+    finally:
+        torch.use_deterministic_algorithms(False)
+        MC.set_compute_dtype(was)
+    (l1, g1), (l2, g2) = runs
+    assert torch.equal(l1, l2)
+    assert all(torch.equal(a, b) for a, b in zip(MC.tree_leaves(g1),
+                                                 MC.tree_leaves(g2)))
