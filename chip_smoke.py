@@ -128,6 +128,29 @@ Phases, one line each; any failure exits non-zero and prints no result:
              deterministic algorithms on), the checkpoint's Bloom filter
              skips stats, the pipeline drops what a fresh host pipeline
              drops; no kernel launched
+12. moe      MoE and MLA: a ``ServeEngine`` over deepseek-v2-lite-16b FULL
+             (27 layers, 64 routed experts top-6 + 2 shared, MLA over a
+             512 + 64 latent cache; bf16 weights drawn leaf by leaf on the
+             card, the leaf count and the engine's aliasing checked) runs
+             phase 10's ``serve_cell`` and ``serve_faults`` (a CPU twin's
+             stats, bloom_probe by the route rule); the 64-token
+             prefill's routing (experts used, pairs dropped past
+             capacity); decode against teacher forcing over 16 prompt
+             tokens (no prefill over 31 tokens, so no drop) within
+             TF_REL_BF16 on the steps routed alike (a near-tie flip
+             counted, not held), and at f32 (TF32 off, 62.8 GB of f32
+             weights) within TF_REL_F32 on every step, none routed
+             otherwise; host ms of prefill and decode, one
+             decode step profiled, the MLA cache bytes, peak memory and
+             two decode bounds (every expert's weights, the active
+             ones); FULL widths cut to 2 layers at f32 (TF32 off), card
+             against CPU: prefill and a decode step within CARD_CPU_REL,
+             the MoE layer's routing equal, the loss and its gradients
+             at seq 64; then
+             deepseek-7b, qwen3-14b, deepseek-67b, llama4-scout-17b-a16e
+             and internvl2-26b (256 seeded patch embeddings) at FULL
+             widths cut to 2 layers, bf16: a 64-token prefill, 8 decode
+             steps against teacher forcing, host ms, peak memory
 
 Then one JSON line of kernel records, the card line and the result line.
 Launch counts are set to 0 just before each path is driven and read just
@@ -138,6 +161,7 @@ Usage: python3 chip_smoke.py
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -538,31 +562,65 @@ def serve_faults(cell: dict, twin: dict | None = None) -> list[str]:
     return faults
 
 
+@contextlib.contextmanager
+def recorded_routes():
+    """The routing of every MoE layer's forward pass made inside, in call
+    order: numpy [T, k] expert ids, -1 where the pair was dropped past the
+    expert's capacity. The model looks ``moe_slots`` up in its module at
+    each call, so the recorder wraps it there for the duration."""
+    from repro_torch.models import common as MC
+    routed, slots = [], MC.moe_slots
+
+    def record(gidx, *args):
+        pos, keep = slots(gidx, *args)
+        routed.append(np.where(keep.cpu().numpy(), gidx.cpu().numpy(), -1))
+        return pos, keep
+    MC.moe_slots = record
+    try:
+        yield routed
+    finally:
+        MC.moe_slots = slots
+
+
 def teacher_forcing(model, params, prompt, n_steps: int, max_len: int,
-                    device) -> tuple[list, list]:
+                    device, extra=None) -> tuple[list, list, list]:
     """Greedy decode of ``n_steps`` tokens after ``prompt`` (the engine's
-    loop), and for each decode step t the relative L2 distance and max
-    |difference| of its logits from a prefill over the prompt and the first
-    t generated tokens. Returns (tokens, [(rel, max_abs)])."""
+    loop; ``extra`` joins every prefill's batch, e.g. a VLM's patch
+    embeddings), and for each decode step t the relative L2 distance and
+    max |difference| of its logits over the vocabulary (a padded
+    vocabulary's -1e30 rows would overflow the norm) from a prefill over
+    the prompt and the first t generated tokens. Returns (tokens,
+    [(rel, max_abs)], flips):
+    ``flips[t]`` is True where a MoE layer sent step t's token to other
+    experts in the decode than in the prefill: a near-tie in the router
+    rounded the other way, or the prefill dropped the token past an
+    expert's capacity (a one-token decode drops none). Either is a
+    discrete jump, not rounding. Never for a dense model."""
     import torch
+    vocab = getattr(model.cfg, "lm", model.cfg).vocab
 
     def fill(tokens):
         t = torch.from_numpy(np.asarray(tokens, np.int32)[None]).to(device)
-        return model.prefill(params, {"tokens": t}, max_len)
+        return model.prefill(params, {"tokens": t, **(extra or {})},
+                             max_len)
 
-    with torch.inference_mode():
+    with torch.inference_mode(), recorded_routes() as routed:
         logits, cache = fill(prompt)
         gen = [int(torch.argmax(logits[0, -1]))]
-        errs = []
+        errs, flips = [], []
         for _ in range(n_steps - 1):
             step = torch.tensor([[gen[-1]]], dtype=torch.int32, device=device)
+            routed.clear()
             lg, cache = model.decode_step(params, cache, step)
+            decoded = [set(r[-1]) - {-1} for r in routed]
+            routed.clear()
             ref, _ = fill(np.concatenate([prompt, gen]))
-            d = (lg - ref).float()
-            errs.append((float(d.norm() / ref.float().norm()),
-                         float(d.abs().max())))
+            flips.append(decoded != [set(r[-1]) - {-1} for r in routed])
+            lg, ref = lg[..., :vocab].float(), ref[..., :vocab].float()
+            d = lg - ref
+            errs.append((float(d.norm() / ref.norm()), float(d.abs().max())))
             gen.append(int(torch.argmax(lg[0, -1])))
-    return gen, errs
+    return gen, errs, flips
 
 
 def numpy_params(specs, seed: int):
@@ -784,6 +842,119 @@ def supervisor_faults(failed: dict, clean: dict) -> list[str]:
     return faults
 
 
+# -- phase 12: MoE and MLA (deepseek-v2-lite-16b) and the other archs --------
+MOE_ARCH = "deepseek-v2-lite-16b"
+# FULL widths cut to 2 layers (deepseek-v2-lite: one dense, one MoE)
+CUT_ARCHS = ("deepseek-7b", "qwen3-14b", "deepseek-67b",
+             "llama4-scout-17b-a16e", "internvl2-26b")
+CUT_LAYERS, CUT_PROMPT, CUT_STEPS = 2, 64, 8
+# decode against teacher forcing at deepseek-v2-lite FULL over the first
+# 16 tokens of the engine's first prompt: every prefill then holds at most
+# 16 + 15 = 31 tokens, under the 32 slots an expert always has, so no
+# pair is dropped past capacity whatever the routing (a 64-token prefill
+# drops the pairs of tokens that crowd an expert, which a one-token decode
+# never does). At bf16 a step's token is often routed otherwise: the two
+# paths round differently, and over 26 MoE layers a near-tie between the
+# 6th and 7th expert flips in most steps. At f32 (TF32 off) they round
+# alike to ~1e-7, and every step is held to TF_REL_F32: f32 arithmetic
+# in other summation orders over 27 layers.
+MOE_TF_PROMPT, TF_REL_F32 = 16, 1e-4
+# the loss and its gradients, card against CPU at f32: batch 1, seq 64;
+# the same f32 arithmetic in other summation orders, as phase 11's
+MOE_CPU_SEQ, MOE_LOSS_REL, MOE_GRAD_REL = 64, 1e-5, 1e-4
+
+
+def cut_model(arch_id: str, n_layers: int = CUT_LAYERS):
+    """The arch's FULL config cut to ``n_layers`` (a VLM: its backbone's),
+    every width as published."""
+    from repro_torch.configs import get_arch
+    m = get_arch(arch_id).model()
+    if hasattr(m.cfg, "lm"):
+        return type(m)(replace(m.cfg, lm=replace(m.cfg.lm, n_layers=n_layers)))
+    return type(m)(replace(m.cfg, n_layers=n_layers))
+
+
+def bf16_params(model, device, seed: int = 0):
+    """bf16 weights from a seed on ``device``, drawn leaf by leaf (each
+    leaf's f32 draw is freed before the next): the whole of
+    deepseek-v2-lite is 31.4 GB this way, 94 GB as f32 plus a bf16 copy."""
+    import torch
+    from repro_torch.models import common as MC
+    return MC.init_from_specs(model.param_specs(),
+                              torch.Generator(device).manual_seed(seed),
+                              device, dtype=torch.bfloat16)
+
+
+def tf_faults(errs: list, flips: list, bound: float) -> list[str]:
+    """Decode steps off teacher forcing by more than ``bound`` (relative
+    L2) among those routed alike on both paths, and any step whose
+    distance is not finite."""
+    return [f"step {i}: relative L2 {rel} > {bound}"
+            for i, ((rel, _), flip) in enumerate(zip(errs, flips))
+            if not math.isfinite(rel) or (not flip and rel > bound)]
+
+
+def cut_cell(arch_id: str, device, *, prompt_len: int = CUT_PROMPT,
+             n_steps: int = CUT_STEPS, seed: int = 0) -> dict:
+    """The arch at FULL widths cut to CUT_LAYERS, bf16 weights from a seed
+    on ``device``: a ``prompt_len``-token prefill, ``n_steps`` decode
+    steps against teacher forcing (a VLM: after 256 seeded patch
+    embeddings), host ms of a prefill and a decode step (a warm call
+    first)."""
+    import torch
+    from repro_torch.models.common import tree_leaves
+    m = cut_model(arch_id)
+    lm = getattr(m.cfg, "lm", m.cfg)
+    rng = np.random.default_rng(seed)
+    prompt = rng.integers(0, lm.vocab, prompt_len).astype(np.int32)
+    extra, n_vis = {}, getattr(m.cfg, "n_patches", 0)
+    if n_vis:
+        extra = {"patch_embeds": torch.from_numpy(rng.normal(
+            size=(1, n_vis, lm.d_model)) * 0.25).to(device, torch.float32)}
+    max_len = n_vis + prompt_len + n_steps + 1
+    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" \
+        else (lambda: None)
+    params = bf16_params(m, device, seed)
+    gen, errs, flips = teacher_forcing(m, params, prompt, n_steps + 1,
+                                       max_len, device, extra)
+    t = torch.from_numpy(prompt[None]).to(device)
+    with torch.inference_mode():
+        def prefill():
+            return m.prefill(params, {"tokens": t, **extra}, max_len)
+        _, cache = prefill()
+        step = torch.tensor([[gen[0]]], dtype=torch.int32, device=device)
+        ms = {}
+        for name, fn in (("prefill", prefill),
+                         ("decode", lambda: m.decode_step(params, cache,
+                                                          step))):
+            fn()
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                fn()
+                sync()
+            ms[name] = (time.perf_counter() - t0) * 1e3 / 3
+    n_params = sum(a.numel() for a in tree_leaves(params))
+    return {"arch": arch_id, "layers": lm.n_layers, "params": n_params,
+            "errs": errs, "flips": flips, "prefill_ms": ms["prefill"],
+            "decode_ms": ms["decode"], "patches": n_vis}
+
+
+def loss_grad_parts(model, np_params, tokens, device) -> tuple:
+    """The model's loss (float) on ``tokens`` [B, S + 1] and its gradient
+    leaves (numpy f32, ``tree_leaves`` order), from numpy params on
+    ``device``."""
+    import torch
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import common as MC
+    params = MC.params_from_numpy(np_params, device)
+    t = torch.from_numpy(np.asarray(tokens, np.int32)).to(device)
+    loss, grads = loss_and_grads(model, params, {"tokens": t[:, :-1],
+                                                 "labels": t[:, 1:]})
+    return float(loss), [g.float().cpu().numpy()
+                         for g in MC.tree_leaves(grads)]
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -829,7 +1000,8 @@ def main() -> None:
         from repro_torch.launch.steps import make_train_step
         from repro_torch.optim.adamw import AdamWConfig
         from repro_torch.models import common as MC
-        from repro_torch.models.transformer import TransformerLM
+        from repro_torch.models.transformer import (TransformerConfig,
+                                                    TransformerLM)
         from repro_torch.query import Catalog, Member, Pipeline, RangeFence
         from repro_torch.serving.engine import (payload_to_device,
                                                 payload_to_host)
@@ -1933,6 +2105,40 @@ def main() -> None:
         return {"bloom_probe": bloom_probe.launches,
                 **bloom_paths(bloom_probe)}
 
+    def serve_launches(cell) -> list[dict]:
+        """Each run of ``serve_cell``'s ``bloom_probe`` launches, checked:
+        one a tier, by the path ``bloom_onchip.onchip_reason`` names for
+        the run's keys over the engine's tier bank."""
+        pstate = cell["engine"].prefix_cache._service.state
+        tier_layouts = [((lay.m_bits, lay.k, lay.seed, lay.offset),)
+                        for lay in pstate.bank.layouts]
+        out = []
+        for launches, n_keys in ([(r["launches"], LM_REQUESTS)
+                                  for r in cell["runs"]]
+                                 + [(cell["fresh_launches"], LM_PROMPTS)]):
+            rule = rule_paths(tier_layouts, n_keys, pstate.tables)
+            check(launches == {"bloom_probe": len(PC_TIERS), **rule},
+                  f"serve cell: bloom_probe launched {launches} in a run, "
+                  f"the rule says {rule}")
+            out.append(launches)
+        return out
+
+    def twin_cell(vocab: int) -> dict:
+        """``serve_cell`` on the CPU with a 1-layer, 64-wide dense model of
+        ``vocab``: the same request stream, so the same prefix-cache
+        stats."""
+        twin_model = TransformerLM(TransformerConfig(
+            name="twin", n_layers=1, d_model=64, n_heads=4, n_kv_heads=2,
+            d_ff=128, vocab=vocab, head_dim=16))
+        was = MC.COMPUTE_DTYPE
+        MC.set_compute_dtype(torch.float32)
+        try:
+            return serve_cell(twin_model, MC.init_from_specs(
+                twin_model.param_specs(), torch.Generator().manual_seed(0),
+                "cpu"), "cpu")
+        finally:
+            MC.set_compute_dtype(was)
+
     q9 = {"lsm_probe": 0, "bloom_probe": 0, "bloom_gather": 0}
     # the query cell at the repo's full scale: the fused plan's Member
     # stage is one lsm_probe launch; the semijoin's are three (the base
@@ -2069,35 +2275,17 @@ def main() -> None:
     # the reference's param_count leaves out the final norm's gains
     check(n_params == cfg.param_count() + cfg.d_model,
           f"llama3.2-1b FULL has {n_params} parameters")
-    pc10 = []
     cell = serve_cell(model, params, dev, reset=reset_counts,
                       read=bloom_launches)
     eng = cell["engine"]
-    twin_model = TransformerLM(replace(cfg, n_layers=1, d_model=64,
-                                       n_heads=4, n_kv_heads=2, d_ff=128,
-                                       head_dim=16))
-    MC.set_compute_dtype(torch.float32)
-    twin = serve_cell(twin_model, MC.init_from_specs(
-        twin_model.param_specs(), torch.Generator().manual_seed(0), "cpu"),
-        "cpu")
-    MC.set_compute_dtype(torch.bfloat16)
+    twin = twin_cell(cfg.vocab)
     faults = serve_faults(cell, twin)
     check(not faults, f"serve cell: {faults}")
-    pstate = eng.prefix_cache._service.state
-    tier_layouts = [((lay.m_bits, lay.k, lay.seed, lay.offset),)
-                    for lay in pstate.bank.layouts]
-    for launches, n_keys in ([(r["launches"], LM_REQUESTS)
-                              for r in cell["runs"]]
-                             + [(cell["fresh_launches"], LM_PROMPTS)]):
-        rule = rule_paths(tier_layouts, n_keys, pstate.tables)
-        check(launches == {"bloom_probe": len(PC_TIERS), **rule},
-              f"serve cell: bloom_probe launched {launches} in a run, the "
-              f"rule says {rule}")
-        pc10.append(launches)
+    pc10 = serve_launches(cell)
     # decode against teacher forcing, over the engine's first prompt
     cp = eng.compute_params
     prompt0 = cell["prompts"][0]
-    gen, tf_errs = teacher_forcing(model, cp, prompt0, LM_MAX_NEW,
+    gen, tf_errs, _ = teacher_forcing(model, cp, prompt0, LM_MAX_NEW,
                                    LM_MAX_LEN, dev)
     check(gen == cell["runs"][0]["outputs"][0],
           "teacher forcing's greedy tokens != the engine's")
@@ -2366,8 +2554,205 @@ def main() -> None:
           f" (the dedup and checkpoint filters are host numpy Bloom queries) "
           f"| {card} | total {time.monotonic() - t_start:.0f} s", flush=True)
 
-    q9["bloom_probe"] += sum(l["bloom_probe"] for l in pc10)
-    q9["bloom_gather"] += sum(l["gather"] for l in pc10)
+    # -- 12. MoE and MLA: deepseek-v2-lite-16b FULL served; the other archs
+    # (a) ServeEngine over deepseek-v2-lite FULL (27 layers: one dense, 26
+    # of 64 routed experts top-6 plus 2 shared; MLA over a 512 + 64 latent
+    # cache): bf16 weights from a seed drawn leaf by leaf on the card
+    t12 = time.monotonic()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = get_arch(MOE_ARCH).model()
+    cfg = model.cfg
+    t = time.perf_counter()
+    params = bf16_params(model, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    leaves = MC.tree_leaves(params)
+    n_params = sum(a.numel() for a in leaves)
+    check(n_params == cfg.param_count() + cfg.d_model
+          and all(a.dtype == torch.bfloat16 for a in leaves),
+          f"{MOE_ARCH} FULL has {n_params} parameters "
+          f"({ {str(a.dtype) for a in leaves} })")
+    init_gb = torch.cuda.max_memory_allocated() / 1e9
+    cell = serve_cell(model, params, dev, reset=reset_counts,
+                      read=bloom_launches)
+    eng = cell["engine"]
+    check(all(a is b for a, b in zip(leaves,
+                                     MC.tree_leaves(eng.compute_params))),
+          "the engine made a second copy of the bf16 weights")
+    faults = serve_faults(cell, twin_cell(cfg.vocab))
+    check(not faults, f"{MOE_ARCH} serve cell: {faults}")
+    pc12 = serve_launches(cell)
+    prompt0 = cell["prompts"][0]
+    tok0 = torch.from_numpy(prompt0[None]).to(dev)
+    with torch.inference_mode(), recorded_routes() as routed:
+        model.prefill(params, {"tokens": tok0}, LM_MAX_LEN)
+    used = sorted(len(set(r[r >= 0].tolist())) for r in routed)
+    dropped = [int((r < 0).sum()) for r in routed]
+    _, tf_errs, tf_flips = teacher_forcing(
+        model, params, prompt0[:MOE_TF_PROMPT], LM_MAX_NEW, LM_MAX_LEN, dev)
+    faults = tf_faults(tf_errs, tf_flips, TF_REL_BF16)
+    check(not faults, f"{MOE_ARCH} decode != teacher forcing: {faults}")
+    tf_rel = max([e for (e, _), f in zip(tf_errs, tf_flips) if not f],
+                 default=float("nan"))
+    step = torch.tensor([[cell["runs"][0]["outputs"][0][0]]],
+                        dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        prefill_ms = host_ms(lambda: model.prefill(params, {"tokens": tok0},
+                                                   LM_MAX_LEN), reps=5)
+        cache0 = model.prefill(params, {"tokens": tok0}, LM_MAX_LEN)[1]
+        decode_ms = host_ms(lambda: model.decode_step(params, cache0, step),
+                            reps=20)
+        decode_rows = device_rows(lambda: model.decode_step(params, cache0,
+                                                            step))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    mla_bytes = sum(a.numel() * a.element_size()
+                    for layer in cache0["layers"] for a in layer.values())
+    check(mla_bytes == cfg.n_layers * (cfg.kv_lora_rank + cfg.qk_rope_dim)
+          * LM_MAX_LEN * 2, f"MLA cache of {mla_bytes} B")
+    table = cfg.vocab * cfg.d_model        # one row of it is read a token
+    bound_all_ms = 2 * (cfg.param_count() - table) / HBM_BYTES_PER_S * 1e3
+    bound_active_ms = 2 * (cfg.active_param_count() - table) \
+        / HBM_BYTES_PER_S * 1e3
+    r1, r2 = cell["runs"]
+    print(f"moe serve: {MOE_ARCH} FULL ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads, MLA kv_lora {cfg.kv_lora_rank}"
+          f" + rope {cfg.qk_rope_dim}, {cfg.n_experts} experts top-"
+          f"{cfg.top_k} + {cfg.n_shared_experts} shared of d_ff "
+          f"{cfg.moe_d_ff}, first {cfg.first_k_dense} dense of d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}; {n_params} bf16 parameters drawn "
+          f"leaf by leaf on the card in {init_s:.1f} s, peak {init_gb:.2f} "
+          f"GB; {cfg.active_param_count()} active a token), max_len "
+          f"{LM_MAX_LEN} | {LM_REQUESTS} requests over {LM_PROMPTS} "
+          f"{LM_PROMPT_LEN}-token prompts, max_new {LM_MAX_NEW}, twice, then "
+          f"a fresh engine: no fault; stats == the CPU twin's: run 1 "
+          f"{json.dumps(r1['stats'])}, run 2 {json.dumps(r2['stats'])} | "
+          f"bloom_probe launches a run {pc12} | a {LM_PROMPT_LEN}-token "
+          f"prefill's routing over {len(routed)} MoE layers: distinct "
+          f"experts a layer min {used[0]}, median {used[len(used) // 2]}, max "
+          f"{used[-1]} of {cfg.n_experts}; (token, choice) pairs dropped past "
+          f"capacity a layer max {max(dropped)} of "
+          f"{LM_PROMPT_LEN * cfg.top_k}, {sum(dropped)} in all | decode == "
+          f"teacher forcing over the first {MOE_TF_PROMPT} prompt tokens, "
+          f"{len(tf_errs)} steps, {sum(tf_flips)} routed otherwise (a flip "
+          f"in the router); relative L2 max {tf_rel:.4g} over the others (<= "
+          f"{TF_REL_BF16}), all steps {[round(e, 4) for e, _ in tf_errs]} | "
+          f"{card}", flush=True)
+    print(f"moe serve times (host clock, a warm call first): prefill "
+          f"{prefill_ms:.2f} ms per {LM_PROMPT_LEN}-token request; decode "
+          f"{decode_ms:.3f} ms a token; one step profiled: "
+          f"{busy(device_totals(decode_rows), decode_ms)}; top device "
+          f"operations: {device_top(decode_rows)} | decode bounds, the "
+          f"weights but the embedding table read once at bf16 over 3.35 "
+          f"TB/s: every expert (the reference's [E, cap] layout) "
+          f"{bound_all_ms:.3f} ms, the active experts only "
+          f"{bound_active_ms:.3f} ms | run 1 {r1['tokens']} tokens in "
+          f"{r1['s'] * 1e3:.0f} ms ({r1['tokens'] / r1['s']:.1f} tokens/s), "
+          f"run 2 (all hits) {r2['tokens']} in {r2['s'] * 1e3:.0f} ms | MLA "
+          f"cache {mla_bytes} B a request ({cfg.n_layers} x ("
+          f"{cfg.kv_lora_rank} + {cfg.qk_rope_dim}) x {LM_MAX_LEN} x 2 B) | "
+          f"peak device memory allocated {peak_gb:.2f} GB | {card}",
+          flush=True)
+    del params, leaves, eng, cell, cache0
+    torch.cuda.empty_cache()
+    # decode against teacher forcing at f32 (TF32 off), all 27 layers:
+    # f32 weights drawn from the same seed (62.8 GB, the bf16 ones freed)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    MC.set_compute_dtype(torch.float32)
+    params = MC.init_from_specs(model.param_specs(),
+                                torch.Generator(dev).manual_seed(0), dev)
+    _, f32_errs, f32_flips = teacher_forcing(
+        model, params, prompt0[:MOE_TF_PROMPT], LM_MAX_NEW, LM_MAX_LEN, dev)
+    f32_gb = torch.cuda.max_memory_allocated() / 1e9
+    MC.set_compute_dtype(torch.bfloat16)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    del params, model
+    torch.cuda.empty_cache()
+    faults = tf_faults(f32_errs, f32_flips, TF_REL_F32)
+    check(not faults and not any(f32_flips),
+          f"{MOE_ARCH} decode != teacher forcing at f32: {faults}, "
+          f"{sum(f32_flips)} steps routed otherwise")
+    print(f"moe teacher forcing at f32: {MOE_ARCH} FULL, TF32 off, f32 "
+          f"weights from the same seed: {len(f32_errs)} decode steps over "
+          f"the first {MOE_TF_PROMPT} prompt tokens, {sum(f32_flips)} routed "
+          f"otherwise, relative L2 max {max(e for e, _ in f32_errs):.4g} (<= "
+          f"{TF_REL_F32}), max |diff| {max(e for _, e in f32_errs):.4g} | "
+          f"peak device memory allocated {f32_gb:.2f} GB | {card}",
+          flush=True)
+    # (b) FULL widths cut to 2 layers (one dense, one MoE) at f32, TF32
+    # off: prefill and one decode step, the MoE layer's routing, and the
+    # loss with its gradients (the backward through the dispatch), the
+    # card against the CPU from the same numpy weights
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    MC.set_compute_dtype(torch.float32)
+    small = cut_model(MOE_ARCH)
+    np_params = numpy_params(small.param_specs(), seed=1)
+    forced = np.random.default_rng(9).integers(0, cfg.vocab, 1).tolist()
+    toks = np.random.default_rng(12).integers(0, cfg.vocab,
+                                              (1, MOE_CPU_SEQ + 1))
+    parts = []
+    for where in (dev, "cpu"):
+        t = time.perf_counter()
+        with recorded_routes() as routed:
+            logits = forced_logits(small, MC.params_from_numpy(
+                np_params, where), prompt0, forced, LM_MAX_LEN, where)
+        parts.append((logits, routed,
+                      loss_grad_parts(small, np_params, toks, where),
+                      time.perf_counter() - t))
+    MC.set_compute_dtype(torch.bfloat16)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    del np_params
+    (lg_card, rt_card, (loss_card, g_card), card_s), \
+        (lg_cpu, rt_cpu, (loss_cpu, g_cpu), cpu_s) = parts
+    rel = [float(np.abs(a - b).max() / np.abs(b).max())
+           for a, b in zip(lg_card, lg_cpu)]
+    routes_equal = len(rt_card) == len(rt_cpu) == 2 and all(
+        np.array_equal(a, b) for a, b in zip(rt_card, rt_cpu))
+    loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+    grad_rel = max(rel_l2(a, b) for a, b in zip(g_card, g_cpu))
+    check(max(rel) <= CARD_CPU_REL and routes_equal
+          and loss_rel <= MOE_LOSS_REL and grad_rel <= MOE_GRAD_REL,
+          f"{MOE_ARCH} card != CPU at 2 layers, f32: logits {rel}, routes "
+          f"equal {routes_equal}, loss {loss_rel}, gradients {grad_rel}")
+    print(f"moe card vs CPU: {MOE_ARCH} FULL widths cut to 2 layers (one "
+          f"dense, one MoE), f32, TF32 off, numpy weights: prefill + "
+          f"{len(forced)} decode step, max |card - cpu| / max |cpu| "
+          f"{[f'{r:.3g}' for r in rel]} (<= {CARD_CPU_REL}); the MoE "
+          f"layer's expert ids and dropped pairs equal on both "
+          f"({sum(r.shape[0] for r in rt_cpu)} tokens routed); loss at batch 1, seq {MOE_CPU_SEQ} {loss_card:.6f}"
+          f" vs {loss_cpu:.6f} (relative {loss_rel:.3g} <= {MOE_LOSS_REL}), "
+          f"gradient leaves relative L2 max {grad_rel:.3g} (<= "
+          f"{MOE_GRAD_REL}) over {len(g_cpu)} leaves | card {card_s:.1f} s, "
+          f"CPU {cpu_s:.1f} s | {card}", flush=True)
+    del parts, g_card, g_cpu, small
+    # (c) the other archs at FULL widths cut to 2 layers, bf16 on the card
+    for arch_id in CUT_ARCHS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        r = cut_cell(arch_id, dev)
+        faults = tf_faults(r["errs"], r["flips"], TF_REL_BF16)
+        check(not faults, f"{arch_id} decode != teacher forcing: {faults}")
+        rels = [e for (e, _), f in zip(r["errs"], r["flips"]) if not f]
+        print(f"cut {arch_id}: FULL widths, {r['layers']} layers, "
+              f"{r['params']} bf16 parameters"
+              + (f", {r['patches']} seeded patch embeddings" if r["patches"]
+                 else "")
+              + f" | {CUT_PROMPT}-token prefill {r['prefill_ms']:.2f} ms, "
+              f"decode {r['decode_ms']:.3f} ms a token (host clock) | "
+              f"{len(r['errs'])} decode steps == teacher forcing, "
+              f"{sum(r['flips'])} routed otherwise, relative L2 max "
+              f"{max(rels, default=float('nan')):.4g} over the others (<= "
+              f"{TF_REL_BF16}) | peak device memory allocated "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB | {card}",
+              flush=True)
+    print(f"moe phase: {time.monotonic() - t12:.0f} s | {card} | total "
+          f"{time.monotonic() - t_start:.0f} s", flush=True)
+
+    q9["bloom_probe"] += sum(l["bloom_probe"] for l in pc10 + pc12)
+    q9["bloom_gather"] += sum(l["gather"] for l in pc10 + pc12)
     for r in records:
         r["launches"] += q9.get(r["name"], 0)
         if r["name"] == "bloom_probe":

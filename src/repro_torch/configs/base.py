@@ -50,7 +50,7 @@ class ArchDef:
     source: str                        # provenance note
     make_model: Callable               # (smoke: bool, tp_divisor: int) -> model
     subquadratic: bool = False         # may run long_500k
-    modality_inputs: Callable | None = None   # (cfg, B) -> {name: spec}
+    modality_inputs: Callable | None = None   # (cfg, B, smoke) -> {name: spec}
     encoder_only: bool = False
 
     def model(self, smoke: bool = False, tp_divisor: int = 1, **kw):
@@ -70,6 +70,18 @@ def applicable_shapes(arch: ArchDef) -> list[str]:
     return out
 
 
+def draw_modality_inputs(arch: ArchDef, cfg, B: int, smoke: bool, rng,
+                         device) -> dict:
+    """The arch's modality inputs (a VLM's patch embeddings) for a batch
+    of ``B``, drawn from the numpy generator ``rng`` as the reference's
+    entry points draw them (normal x 0.25, then each spec's dtype), on
+    ``device``; {} for an arch without them."""
+    if arch.modality_inputs is None:
+        return {}
+    return {k: torch.from_numpy(rng.normal(size=v.shape) * 0.25).to(
+        device, v.dtype) for k, v in arch.modality_inputs(cfg, B, smoke).items()}
+
+
 def _tok(B, S):
     return torch.empty((B, S), dtype=torch.int32, device="meta")
 
@@ -78,25 +90,20 @@ def input_specs(arch: ArchDef, shape_name: str, smoke: bool = False,
                 model=None) -> dict:
     """``meta`` tensors standing in for every input of (arch, shape).
 
-    train:   {'batch': {'tokens','labels'}}
-    prefill: {'batch': {'tokens'}}
+    train:   {'batch': {'tokens','labels'(+modality)}}
+    prefill: {'batch': {'tokens'(+modality)}}
     decode:  {'cache': <model.cache_specs(B, S)>, 'tokens': (B,1)}
-
-    The port's archs have no modality inputs; an arch with them is
-    refused until its family is ported.
     """
-    if arch.modality_inputs is not None:
-        raise NotImplementedError(
-            f"{arch.arch_id}: modality inputs are not ported to repro_torch "
-            "yet; see ROADMAP.md, Queue 1 item 7")
     table = SMOKE_SHAPES if smoke else SHAPES
     s = table[shape_name]
     m = model if model is not None else arch.model(smoke=smoke)
-    if s.kind == "train":
-        return {"batch": {"tokens": _tok(s.batch, s.seq),
-                          "labels": _tok(s.batch, s.seq)}}
-    if s.kind == "prefill":
-        return {"batch": {"tokens": _tok(s.batch, s.seq)}}
+    if s.kind in ("train", "prefill"):
+        b = {"tokens": _tok(s.batch, s.seq)}
+        if s.kind == "train":
+            b["labels"] = _tok(s.batch, s.seq)
+        if arch.modality_inputs:
+            b.update(arch.modality_inputs(m.cfg, s.batch, smoke))
+        return {"batch": b}
     # decode: one new token against a cache of length seq
     return {"cache": m.cache_specs(s.batch, s.seq),
             "tokens": _tok(s.batch, 1)}

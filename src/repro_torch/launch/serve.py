@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_arch
+from repro_torch.configs.base import draw_modality_inputs
 from repro_torch.kernels.common import as_device
 from repro_torch.models import common as MC
 from repro_torch.models.common import init_from_specs
@@ -44,10 +45,11 @@ def main(argv=None):
         rng = np.random.default_rng(3)
         prefixes = [rng.integers(0, 64, 8).astype(np.int32)
                     for _ in range(args.n_prefixes)]
+        extra = draw_modality_inputs(arch, m.cfg, 1, True, rng, device)
         reqs = [Request(rid=i, prompt=prefixes[i % len(prefixes)].copy(),
                         max_new=args.max_new) for i in range(args.requests)]
         t0 = time.perf_counter()
-        eng.run(reqs)
+        eng.run(reqs, extra_inputs=extra)
         dt = time.perf_counter() - t0
     finally:
         MC.set_compute_dtype(was)

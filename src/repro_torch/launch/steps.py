@@ -120,7 +120,9 @@ def build_cell(arch: ArchDef, shape_name: str, *, device="cuda",
         p_abs = _meta_params(pspecs, lambda d: torch.bfloat16
                              if d == torch.float32 else d)
         if s.kind == "prefill":
-            fn = make_prefill_step(m, max_len=s.seq)
+            # VLMs prepend the visual prefix to the decoder cache
+            extra = getattr(getattr(m, "cfg", None), "n_patches", 0)
+            fn = make_prefill_step(m, max_len=s.seq + extra)
             args = (p_abs, ispecs["batch"])
         else:
             fn = make_serve_step(m)

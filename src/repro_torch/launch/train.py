@@ -25,7 +25,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_arch
-from repro_torch.configs.base import SMOKE_SHAPES, SHAPES
+from repro_torch.configs.base import (SMOKE_SHAPES, SHAPES,
+                                      draw_modality_inputs)
 from repro_torch.data.pipeline import SyntheticLMData, DataConfig
 from repro_torch.ft.supervisor import Supervisor, FailureInjector
 from repro_torch.ft.straggler import StragglerMonitor
@@ -41,20 +42,31 @@ class ResumableData:
     step. Its batches are deterministic in the step index, but its dedup
     filter remembers every document served; so a step below the next one
     (a restart) rebuilds the pipeline, and any step replays the batches
-    before it that this pipeline has not served."""
+    before it that this pipeline has not served. ``extra(rng)`` adds the
+    arch's modality inputs to each batch, drawn as the reference draws
+    them (one stream from seed 7, one draw a step) and replayed the same
+    way."""
 
-    def __init__(self, cfg: DataConfig):
-        self.cfg = cfg
-        self.data = SyntheticLMData(cfg)
+    def __init__(self, cfg: DataConfig, extra=None):
+        self.cfg, self.extra = cfg, extra
+        self._fresh()
+
+    def _fresh(self):
+        self.data = SyntheticLMData(self.cfg)
+        self.rng = np.random.default_rng(7)
         self.next_step = 0
+
+    def _draw(self) -> dict:
+        return self.extra(self.rng) if self.extra else {}
 
     def batch(self, step: int) -> dict:
         if step < self.next_step:
-            self.data, self.next_step = SyntheticLMData(self.cfg), 0
+            self._fresh()
         for s in range(self.next_step, step):
             self.data.batch(s)
+            self._draw()
         self.next_step = step + 1
-        return self.data.batch(step)
+        return {**self.data.batch(step), **self._draw()}
 
     @property
     def n_dropped(self) -> int:
@@ -76,8 +88,12 @@ def build_trainer(arch_id: str, smoke: bool = True, device="cuda",
     shape = (SMOKE_SHAPES if smoke else SHAPES)["train_4k"]
     seq = seq_len or shape.seq
     bsz = batch or shape.batch
-    data = ResumableData(DataConfig(vocab=min(m.cfg.vocab, 32768),
-                                    seq_len=seq, global_batch=bsz, seed=0))
+    lm = getattr(m.cfg, "lm", m.cfg)
+    data = ResumableData(
+        DataConfig(vocab=min(lm.vocab, 32768), seq_len=seq, global_batch=bsz,
+                   seed=0),
+        extra=lambda rng: draw_modality_inputs(arch, m.cfg, bsz, smoke, rng,
+                                               "cpu"))
 
     def init_state():
         params = init_from_specs(m.param_specs(),
@@ -88,7 +104,7 @@ def build_trainer(arch_id: str, smoke: bool = True, device="cuda",
 
     def step_fn(state, step):
         b = data.batch(step)
-        batch_dev = {k: torch.from_numpy(v).to(cell.device)
+        batch_dev = {k: torch.as_tensor(v).to(cell.device)
                      for k, v in b.items()}
         params, opt, metrics = cell.step(state["params"], state["opt"],
                                          batch_dev)

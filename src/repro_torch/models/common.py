@@ -1,6 +1,6 @@
-"""Shared model substrate, its dense part: param specs, norms, rotary
-embeddings, q-chunked softmax attention, the SwiGLU MLP and the
-next-token cross entropy.
+"""Shared model substrate: param specs, norms, rotary embeddings,
+q-chunked softmax attention, the SwiGLU MLP, the token-choice MoE block
+and the next-token cross entropy.
 
 Conventions, as in the reference (``repro/models/common.py``):
 
@@ -18,9 +18,8 @@ Conventions, as in the reference (``repro/models/common.py``):
 - Training differentiates these functions with torch autograd. Two
   carry a hand-written backward that keeps the reference's dtypes: the
   embedding (its custom VJP) and ``matmul_f32`` on the card.
-
-MoE (``moe_block``) waits with the other model families (ROADMAP.md,
-Queue 1 item 7).
+- ``moe_block`` computes the reference's one-hot dispatch and combine
+  by index (``moe_block``'s docstring says why the values agree).
 """
 from __future__ import annotations
 
@@ -65,21 +64,28 @@ def tree_unflatten(tree, leaves):
     return tree_map(lambda _: next(it), tree)
 
 
-def init_from_specs(specs, generator: torch.Generator, device="cuda"):
+def init_from_specs(specs, generator: torch.Generator, device="cuda",
+                    dtype: torch.dtype | None = None):
     """Materialize a tree of ParamSpec on ``device``, normal leaves drawn
     from ``generator`` (a generator of that device) with std
     ``scale / sqrt(fan_in)``. The draws cannot match ``jax.random``; weights
-    that must equal the reference's go through ``params_from_numpy``."""
+    that must equal the reference's go through ``params_from_numpy``.
+
+    ``dtype`` (default: each spec's own) is the leaves' dtype. A leaf is
+    drawn and scaled in f32, then cast, and its f32 draw is freed before
+    the next leaf is drawn: bf16 weights of a model whose f32 copy would
+    not fit the card (deepseek-v2-lite's 15.7 G parameters)."""
     def one(spec: ParamSpec) -> torch.Tensor:
+        out = dtype or spec.dtype
         if spec.init == "zeros":
-            return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
+            return torch.zeros(spec.shape, dtype=out, device=device)
         if spec.init == "ones":
-            return torch.ones(spec.shape, dtype=spec.dtype, device=device)
+            return torch.ones(spec.shape, dtype=out, device=device)
         fan_in = spec.shape[0] if len(spec.shape) else 1
         std = spec.scale / math.sqrt(max(1, fan_in))
         w = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
                         device=device)
-        return w.mul_(std).to(spec.dtype)
+        return w.mul_(std).to(out)
     return tree_map(one, specs)
 
 
@@ -165,19 +171,29 @@ class _MatmulF32(torch.autograd.Function):
     the transpose of the reference's ``preferred_element_type=f32``
     einsum as its backward: the f32 cotangent rounded to the inputs'
     dtype, products of that dtype summed in f32, each gradient in its
-    input's dtype (the TPU's default-precision dot)."""
+    input's dtype (the TPU's default-precision dot). ``b`` [K, N], or
+    [E, K, N] beside ``a`` [E, M, K] (a batch of products)."""
 
     @staticmethod
     def forward(ctx, a, b):
         ctx.save_for_backward(a, b)
+        if b.dim() == 3:
+            return torch.bmm(a, b, out_dtype=torch.float32)
         out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
         return out.reshape(*a.shape[:-1], b.shape[-1])
 
     @staticmethod
     def backward(ctx, g):
         a, b = ctx.saved_tensors
-        g2 = g.reshape(-1, g.shape[-1]).to(a.dtype)
         da = db = None
+        if b.dim() == 3:
+            g = g.to(a.dtype)
+            if ctx.needs_input_grad[0]:
+                da = g @ b.transpose(1, 2)
+            if ctx.needs_input_grad[1]:
+                db = a.transpose(1, 2) @ g
+            return da, db
+        g2 = g.reshape(-1, g.shape[-1]).to(a.dtype)
         if ctx.needs_input_grad[0]:
             da = (g2 @ b.t()).reshape(a.shape)
         if ctx.needs_input_grad[1]:
@@ -186,11 +202,11 @@ class _MatmulF32(torch.autograd.Function):
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` (a [..., K], b [K, N]) with an f32 result: products of the
-    inputs' dtype summed in f32, the reference's
-    ``preferred_element_type=jnp.float32``. On the card a bf16 product
-    writes f32 directly (``out_dtype``) rather than widening ``b``, and
-    its backward is ``_MatmulF32``'s."""
+    """``a @ b`` (a [..., K], b [K, N]; or a [E, M, K], b [E, K, N]) with
+    an f32 result: products of the inputs' dtype summed in f32, the
+    reference's ``preferred_element_type=jnp.float32``. On the card a
+    bf16 product writes f32 directly (``out_dtype``) rather than widening
+    ``b``, and its backward is ``_MatmulF32``'s."""
     if a.dtype == torch.float32:
         return a @ b
     if a.is_cuda:
@@ -280,6 +296,100 @@ def swiglu(x, wi_gate, wi_up, wo):
     u = x @ wi_up.to(x.dtype)
     h = torch.nn.functional.silu(h.float()).to(x.dtype) * u
     return h @ wo.to(x.dtype)
+
+
+def moe_route(xt: torch.Tensor, router: torch.Tensor, top_k: int):
+    """Token-choice top-k routing: ``xt`` [T, D] -> (gate values [T, k]
+    f32, renormalised to sum to 1; expert ids [T, k]). The router's
+    product sums in f32 and the softmax is f32. Among equal probabilities
+    the lower expert id comes first, as ``jax.lax.top_k`` orders them: a
+    stable descending sort (``torch.topk`` promises no order for ties)."""
+    probs = torch.softmax(matmul_f32(xt, router.to(xt.dtype)), dim=-1)
+    gval, gidx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gval, gidx = gval[:, :top_k], gidx[:, :top_k]
+    return gval / torch.clamp(gval.sum(-1, keepdim=True), min=1e-9), gidx
+
+
+def moe_capacity(n_tokens: int, top_k: int, n_experts: int,
+                 capacity_factor: float = 1.25,
+                 group_size: int = 4096) -> tuple[int, int, int]:
+    """(groups G, tokens a group Tg, slots an expert has in a group). The
+    reference reshapes the T tokens into (G, Tg), so a T that G does not
+    divide fails there; here it raises. An expert has at least 32 slots
+    a group, so a decode step or a prefill of up to 32 tokens drops
+    nothing; a longer prefill whose tokens crowd one expert does."""
+    G = max(1, n_tokens // group_size)
+    if n_tokens % G:
+        raise ValueError(f"{n_tokens} tokens do not split into {G} groups "
+                         f"of equal size (group_size {group_size})")
+    Tg = n_tokens // G
+    cap = min(Tg * top_k,
+              max(math.ceil(capacity_factor * Tg * top_k / n_experts), 32))
+    return G, Tg, cap
+
+
+def moe_slots(gidx: torch.Tensor, n_groups: int, n_experts: int,
+              cap: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(pos, keep), both [T, k]: each (token, choice)'s position among its
+    expert's rows in its group, counted over the FLATTENED (token, choice)
+    order (a count per choice would put two choices in one slot), and
+    ``pos < cap``; the pairs past an expert's capacity are dropped."""
+    T, k = gidx.shape
+    flat = gidx.reshape(n_groups, -1)
+    onehot = torch.nn.functional.one_hot(flat, n_experts)
+    pos = (onehot.cumsum(1) - onehot).gather(2, flat[..., None])
+    pos = pos.reshape(T, k)
+    return pos, pos < cap
+
+
+def moe_block(x, params, *, n_experts: int, top_k: int,
+              capacity_factor: float = 1.25, group_size: int = 4096):
+    """Token-choice top-k MoE with capacity-factor dropping: x [B,S,D].
+
+    The reference dispatches and combines with one-hot tensors
+    ``[G, Tg, E, cap]`` (503 MB each at 4,096 tokens of deepseek-v2-lite,
+    and 3 GB for its three-operand combine einsum in torch). Each kept
+    (token, choice) lands in exactly one (expert, slot) row, so this
+    copies the token into its row (``index_copy``: the destinations are
+    unique; dropped pairs go to one spare row that is cut off), runs the
+    experts' SwiGLU as batched products over ``[E, G*cap, D]``, and
+    gathers each pair's row back, summing over k in a fixed order. The
+    dispatch is an exact copy in both forms; the combine weights are
+    rounded to x's dtype before they multiply, as the reference's
+    ``comb.astype(x.dtype)``; products and sums in f32, then rounded to
+    x's dtype once. Every expert's weights are read whatever the routing
+    (the reference's [E, cap] layout)."""
+    B, S, D = x.shape
+    T = B * S
+    xt = x.reshape(T, D)
+    gval, gidx = moe_route(xt, params["router"], top_k)
+    G, Tg, cap = moe_capacity(T, top_k, n_experts, capacity_factor,
+                              group_size)
+    pos, keep = moe_slots(gidx, G, n_experts, cap)
+    group = torch.arange(T, device=x.device)[:, None] // Tg
+    n_rows = n_experts * G * cap
+    # expert-major rows, so each expert's G*cap rows are contiguous
+    row = torch.where(keep, (gidx * G + group) * cap + pos, n_rows)
+    xe = xt.new_zeros(n_rows + 1, D).index_copy(
+        0, row.reshape(-1), xt.repeat_interleave(top_k, dim=0))
+    xe = xe[:n_rows].reshape(n_experts, G * cap, D)
+    h = matmul_f32(xe, params["wi_gate"].to(x.dtype))
+    u = matmul_f32(xe, params["wi_up"].to(x.dtype))
+    h = (torch.nn.functional.silu(h) * u).to(x.dtype)
+    ye = torch.bmm(h, params["wo"].to(x.dtype)).reshape(n_rows, D)
+    ye = torch.nn.functional.pad(ye, (0, 0, 0, 1))      # the spare row: 0
+    w = torch.where(keep, gval, 0.0).to(x.dtype)
+    yt = (w.float()[..., None] * ye[row].float()).sum(1)
+    return yt.to(x.dtype).reshape(B, S, D)
+
+
+def moe_param_specs(d_model: int, d_ff: int, n_experts: int) -> dict:
+    return {
+        "router": ParamSpec((d_model, n_experts), ("embed", "expert_router")),
+        "wi_gate": ParamSpec((n_experts, d_model, d_ff), ("expert", "embed", "mlp")),
+        "wi_up": ParamSpec((n_experts, d_model, d_ff), ("expert", "embed", "mlp")),
+        "wo": ParamSpec((n_experts, d_ff, d_model), ("expert", "mlp", "embed")),
+    }
 
 
 def swiglu_param_specs(d_model: int, d_ff: int) -> dict:

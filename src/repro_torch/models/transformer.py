@@ -1,5 +1,7 @@
-"""Decoder-only transformer LM, its dense path (llama3.2-1b and the other
-dense/GQA archs of the reference's ``repro/models/transformer.py``).
+"""Decoder-only transformer LM covering the dense/GQA/MLA/MoE archs of the
+reference's ``repro/models/transformer.py`` (deepseek-67b/7b,
+llama3.2-1b, qwen3-14b, llama4-scout, deepseek-v2-lite, and the text
+backbone of internvl2).
 
 Layers are unrolled; ``loss`` (train), ``prefill`` and ``decode_step``
 (serve) share one parameter tree with the reference's keys and shapes.
@@ -9,11 +11,11 @@ functional (a new cache tensor per step, as ``dynamic_update_slice``
 returns), and the cache length is a host int. ``remat`` recomputes each
 layer in the backward (``torch.utils.checkpoint``, the reference's
 per-layer ``jax.checkpoint``): the same values, one layer's activations
-alive at a time. MoE, MLA and scanned layers wait (ROADMAP.md, Queue 1
-item 7).
+alive at a time. Scanned layers are refused (ROADMAP.md, Queue 1 item 7).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -95,20 +97,42 @@ class TransformerConfig:
         return n
 
 
+def _f32_then_cast(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` (w [K, N], or [E, K, N] beside x [E, M, K]) summed in f32
+    and rounded to x's dtype: the reference's
+    ``einsum(..., preferred_element_type=jnp.float32).astype(x.dtype)``."""
+    return C.matmul_f32(x, w.to(x.dtype)).to(x.dtype)
+
+
+def _per_head(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [B,S,H,K], w [H,K,N] -> [B,S,H,N]: one product a head, summed in
+    f32 and rounded to x's dtype."""
+    B, S, H, K = x.shape
+    y = _f32_then_cast(x.permute(2, 0, 1, 3).reshape(H, B * S, K), w)
+    return y.reshape(H, B, S, -1).permute(1, 2, 0, 3)
+
+
+def _cache_write(buf: torch.Tensor, new: torch.Tensor,
+                 start: int) -> torch.Tensor:
+    """A copy of the cache ``buf`` with ``new`` at ``start`` along the
+    sequence axis. A write past the cache's length raises; the
+    reference's ``dynamic_update_slice`` would clamp it."""
+    return buf.slice_scatter(new, dim=1, start=start, end=start + new.shape[1])
+
+
 class TransformerLM:
-    """The dense decoder. MoE layers, MLA and ``scan_layers`` are refused:
-    they are not ported yet (ROADMAP.md, Queue 1 item 7)."""
+    """The decoder: dense, MoE (``n_experts > 0``, the first
+    ``first_k_dense`` layers dense) and MLA (``mla=True``) layers.
+    ``scan_layers`` is refused: eager torch has no compile time for a scan
+    to save (ROADMAP.md, Queue 1 item 7)."""
 
     def __init__(self, cfg: TransformerConfig, tp_divisor: int = 1,
                  q_chunk: int = 4096, remat: bool = False,
                  scan_layers: bool = False):
-        for what, on in (("MoE layers (n_experts > 0)", cfg.n_experts > 0),
-                         ("MLA attention (mla=True)", cfg.mla),
-                         ("scan_layers=True", scan_layers)):
-            if on:
-                raise NotImplementedError(
-                    f"{what} is not ported to repro_torch yet; see "
-                    "ROADMAP.md, Queue 1 item 7")
+        if scan_layers:
+            raise NotImplementedError(
+                "scan_layers=True is not ported to repro_torch; see "
+                "ROADMAP.md, Queue 1 item 7")
         self.cfg = cfg
         self.q_chunk = q_chunk
         self.remat = remat                                  # per-layer rematerialization
@@ -116,22 +140,43 @@ class TransformerLM:
         self.Hkv = cfg.n_kv_heads                           # never padded
 
     # ------------------------------------------------------------- params
-    def _layer_specs_one(self):
+    def _layer_specs_one(self, moe: bool):
         c, D, dh, H = self.cfg, self.cfg.d_model, self.cfg.dh, self.H
         p = {
             "ln1": ParamSpec((D,), ("embed",), init="ones"),
             "ln2": ParamSpec((D,), ("embed",), init="ones"),
-            "attn": {
+        }
+        if c.mla:
+            p["attn"] = {
+                "wq": ParamSpec((D, H, c.qk_nope_dim + c.qk_rope_dim),
+                                ("embed", "heads", "head_dim")),
+                "wkv_a": ParamSpec((D, c.kv_lora_rank + c.qk_rope_dim),
+                                   ("embed", "kv_lora")),
+                "kv_norm": ParamSpec((c.kv_lora_rank,), ("kv_lora",), init="ones"),
+                "wk_b": ParamSpec((c.kv_lora_rank, H, c.qk_nope_dim),
+                                  ("kv_lora", "heads", "head_dim")),
+                "wv_b": ParamSpec((c.kv_lora_rank, H, c.v_head_dim),
+                                  ("kv_lora", "heads", "head_dim")),
+                "wo": ParamSpec((H, c.v_head_dim, D),
+                                ("heads", "head_dim", "embed")),
+            }
+        else:
+            p["attn"] = {
                 "wq": ParamSpec((D, H, dh), ("embed", "heads", "head_dim")),
                 "wk": ParamSpec((D, self.Hkv, dh), ("embed", "kv_heads", "head_dim")),
                 "wv": ParamSpec((D, self.Hkv, dh), ("embed", "kv_heads", "head_dim")),
                 "wo": ParamSpec((H, dh, D), ("heads", "head_dim", "embed")),
-            },
-            "mlp": C.swiglu_param_specs(D, c.d_ff),
-        }
-        if c.qk_norm:
-            p["attn"]["q_norm"] = ParamSpec((dh,), ("head_dim",), init="ones")
-            p["attn"]["k_norm"] = ParamSpec((dh,), ("head_dim",), init="ones")
+            }
+            if c.qk_norm:
+                p["attn"]["q_norm"] = ParamSpec((dh,), ("head_dim",), init="ones")
+                p["attn"]["k_norm"] = ParamSpec((dh,), ("head_dim",), init="ones")
+        if moe:
+            p["moe"] = C.moe_param_specs(D, c.moe_d_ff, c.n_experts)
+            if c.n_shared_experts:
+                p["shared_mlp"] = C.swiglu_param_specs(
+                    D, c.moe_d_ff * c.n_shared_experts)
+        else:
+            p["mlp"] = C.swiglu_param_specs(D, c.d_ff)
         return p
 
     def param_specs(self):
@@ -141,18 +186,20 @@ class TransformerLM:
             "embed": ParamSpec((V, c.d_model), ("vocab", "embed"), scale=1.0),
             "ln_f": ParamSpec((c.d_model,), ("embed",), init="ones"),
             "lm_head": ParamSpec((c.d_model, V), ("embed", "vocab")),
-            "layers": [self._layer_specs_one() for _ in range(c.n_layers)],
+            "layers": [self._layer_specs_one(c.is_moe_layer(i))
+                       for i in range(c.n_layers)],
         }
 
     # ------------------------------------------------------------ forward
     def _attn(self, p, x, *, positions, cache=None, cache_len=None):
         """x [B,S,D] -> [B,S,D]; if cache given (decode/prefill-write) the
         (k,v) for these positions are written at ``cache_len`` into a new
-        cache (the one passed in is left as it was). A write past the
-        cache's length raises; the reference's ``dynamic_update_slice``
-        would clamp it."""
+        cache (the one passed in is left as it was; ``_cache_write``)."""
         c, dh = self.cfg, self.cfg.dh
         B, S, D = x.shape
+        if c.mla:
+            return self._attn_mla(p, x, positions=positions, cache=cache,
+                                  cache_len=cache_len)
         q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
         k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
         v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
@@ -170,8 +217,8 @@ class TransformerLM:
                                   window=window)
         else:
             start = cache_len if cache_len is not None else 0
-            ck = cache["k"].slice_scatter(k, dim=1, start=start, end=start + S)
-            cv = cache["v"].slice_scatter(v, dim=1, start=start, end=start + S)
+            ck = _cache_write(cache["k"], k, start)
+            cv = _cache_write(cache["v"], v, start)
             cache = {"k": ck, "v": cv}
             o = C.dense_attention(q, ck, cv, causal=True, q_chunk=self.q_chunk,
                                   q_offset=start, window=window,
@@ -179,31 +226,94 @@ class TransformerLM:
         y = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
         return y, cache
 
-    def _mlp(self, lp, x):
+    def _attn_mla(self, p, x, *, positions, cache=None, cache_len=None):
+        """Multi-head latent attention. Without a cache (the loss):
+        materialized K/V. With one (prefill and decode): only the
+        compressed latents ``ckv`` and ``krope`` are written to the cache,
+        and the scores take the absorbed form over it (prefill too, as in
+        the reference: it passes empty caches)."""
+        c = self.cfg
+        B, S, D = x.shape
+        H = self.H
+        r, nd, rd = c.kv_lora_rank, c.qk_nope_dim, c.qk_rope_dim
+        q = _f32_then_cast(x, p["wq"].reshape(D, -1)).reshape(B, S, H, nd + rd)
+        q_nope, q_rope = q[..., :nd], q[..., nd:]
+        kv_a = _f32_then_cast(x, p["wkv_a"])
+        ckv, k_rope = kv_a[..., :r], kv_a[..., r:]
+        ckv = C.rms_norm(ckv, p["kv_norm"])
+        cos, sin = C.rope_tables(positions, rd, c.rope_theta)
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+        q_rope = C.apply_rope(q_rope, cos, sin)
+        k_rope = C.apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0, :]
+        scale = 1.0 / math.sqrt(nd + rd)
+
+        if cache is None:
+            k_nope = _f32_then_cast(ckv, p["wk_b"].reshape(r, -1)).reshape(
+                B, S, H, nd)
+            v = _f32_then_cast(ckv, p["wv_b"].reshape(r, -1)).reshape(
+                B, S, H, c.v_head_dim)
+            kk = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, rd)],
+                           dim=-1)
+            qq = torch.cat([q_nope, q_rope], dim=-1)
+            o = C.dense_attention(qq * math.sqrt((nd + rd) / qq.shape[-1]),
+                                  kk, v, causal=True, q_chunk=self.q_chunk)
+            y = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
+            return y, None
+
+        start = cache_len
+        cc = _cache_write(cache["ckv"], ckv, start)
+        cr = _cache_write(cache["krope"], k_rope, start)
+        cache = {"ckv": cc, "krope": cr}
+        Tc = cc.shape[1]
+        # absorbed scores: q_nope into the latent space once a step
+        q_lat = _per_head(q_nope, p["wk_b"].permute(1, 2, 0))   # [B,S,H,r]
+        s = (C.matmul_f32(q_lat.reshape(B, S * H, r), cc.transpose(1, 2))
+             + C.matmul_f32(q_rope.reshape(B, S * H, rd), cr.transpose(1, 2)))
+        s = s.reshape(B, S, H, Tc).permute(0, 2, 1, 3) * scale  # [B,H,S,Tc]
+        kpos = torch.arange(Tc, device=x.device)
+        qpos = start + torch.arange(S, device=x.device)
+        s = s.masked_fill((kpos[None, :] > qpos[:, None])[None, None], -1e30)
+        pattn = torch.softmax(s, dim=-1).to(x.dtype)
+        ctx = _f32_then_cast(pattn.reshape(B, H * S, Tc), cc)
+        ctx = ctx.reshape(B, H, S, r).permute(0, 2, 1, 3)        # [B,S,H,r]
+        o = _per_head(ctx, p["wv_b"].permute(1, 0, 2))           # [B,S,H,vd]
+        y = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
+        return y, cache
+
+    def _mlp(self, lp, moe: bool, x):
+        c = self.cfg
+        if moe:
+            y = C.moe_block(x, lp["moe"], n_experts=c.n_experts, top_k=c.top_k)
+            if c.n_shared_experts:
+                y = y + C.swiglu(x, lp["shared_mlp"]["wi_gate"],
+                                 lp["shared_mlp"]["wi_up"],
+                                 lp["shared_mlp"]["wo"])
+            return y
         return C.swiglu(x, lp["mlp"]["wi_gate"], lp["mlp"]["wi_up"],
                         lp["mlp"]["wo"])
 
-    def _layer_apply(self, lp, x, *, positions, cache, cache_len):
+    def _layer_apply(self, lp, x, moe: bool, *, positions, cache, cache_len):
         """One transformer block -> (x, new_cache)."""
         h, nc = self._attn(lp["attn"], C.rms_norm(x, lp["ln1"]),
                            positions=positions, cache=cache,
                            cache_len=cache_len)
         x = x + h
-        x = x + self._mlp(lp, C.rms_norm(x, lp["ln2"]))
+        x = x + self._mlp(lp, moe, C.rms_norm(x, lp["ln2"]))
         return x, nc
 
     def _backbone(self, params, x, *, positions, caches=None, cache_len=None):
         new_caches = []
         for i, lp in enumerate(params["layers"]):
+            moe = self.cfg.is_moe_layer(i)
             if caches is None and self.remat:
-                def f(lp, x):
-                    return self._layer_apply(lp, x, positions=positions,
+                def f(lp, x, moe=moe):
+                    return self._layer_apply(lp, x, moe, positions=positions,
                                              cache=None, cache_len=None)[0]
                 x = checkpoint(f, lp, x, use_reentrant=False)
                 new_caches.append(None)
                 continue
             x, nc = self._layer_apply(
-                lp, x, positions=positions,
+                lp, x, moe, positions=positions,
                 cache=None if caches is None else caches[i],
                 cache_len=cache_len)
             new_caches.append(nc)
@@ -260,12 +370,19 @@ class TransformerLM:
         return self._logits(params, x), {"layers": caches, "len": ln + 1}
 
     # -------------------------------------------------------------- cache
-    def empty_caches(self, B, S, device="cuda"):
+    def _empty_cache_layer(self, B, S, device):
         c = self.cfg
-        shape = (B, S, self.Hkv, c.dh)
-        return [{"k": torch.zeros(shape, dtype=C.COMPUTE_DTYPE, device=device),
-                 "v": torch.zeros(shape, dtype=C.COMPUTE_DTYPE, device=device)}
-                for _ in range(c.n_layers)]
+        if c.mla:
+            shapes = {"ckv": (B, S, c.kv_lora_rank),
+                      "krope": (B, S, c.qk_rope_dim)}
+        else:
+            shapes = {"k": (B, S, self.Hkv, c.dh), "v": (B, S, self.Hkv, c.dh)}
+        return {k: torch.zeros(shape, dtype=C.COMPUTE_DTYPE, device=device)
+                for k, shape in shapes.items()}
+
+    def empty_caches(self, B, S, device="cuda"):
+        return [self._empty_cache_layer(B, S, device)
+                for _ in range(self.cfg.n_layers)]
 
     def cache_specs(self, B, S):
         """The decode cache's shapes and dtypes as ``meta`` tensors (no

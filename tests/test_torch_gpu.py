@@ -4,6 +4,8 @@ skips elsewhere. This file imports no JAX, so on the card it runs alone:
 
     python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -558,3 +560,103 @@ def test_smoke_train_step_is_deterministic_on_card(cuda):
     assert torch.equal(l1, l2)
     assert all(torch.equal(a, b) for a, b in zip(MC.tree_leaves(g1),
                                                  MC.tree_leaves(g2)))
+
+
+def test_moe_block_card_matches_cpu(cuda):
+    """``moe_block`` at deepseek-v2-lite's widths (d_model 2048, 64
+    experts of d_ff 1408, top-6) over 256 tokens, f32 with TF32 off, the
+    same weights on the card and on the CPU: equal expert ids and dropped
+    pairs, outputs within 1e-5 of the largest, and the gradients of x and
+    every weight (the backward through the index dispatch) within 1e-4
+    relative L2."""
+    from repro_torch.models import common as MC
+    cs = _chip_smoke()
+    rng = np.random.default_rng(0)
+    D, F, E, k = 2048, 1408, 64, 6
+    x = rng.normal(size=(1, 256, D)).astype(np.float32)
+    w = {"router": rng.normal(size=(D, E)) / np.sqrt(D),
+         "wi_gate": rng.normal(size=(E, D, F)) / np.sqrt(D),
+         "wi_up": rng.normal(size=(E, D, F)) / np.sqrt(D),
+         "wo": rng.normal(size=(E, F, D)) / np.sqrt(F)}
+    cot = rng.normal(size=x.shape).astype(np.float32)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        runs = []
+        for d in (cuda, "cpu"):
+            tx = torch.from_numpy(x).to(d).requires_grad_(True)
+            tw = {n: torch.from_numpy(a.astype(np.float32)).to(d)
+                  .requires_grad_(True) for n, a in w.items()}
+            with cs.recorded_routes() as routed:
+                y = MC.moe_block(tx, tw, n_experts=E, top_k=k)
+            grads = torch.autograd.grad(
+                torch.sum(y * torch.from_numpy(cot).to(d)), [tx, *tw.values()])
+            runs.append((y.detach().cpu().numpy(), routed,
+                         [g.cpu().numpy() for g in grads]))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (y_card, r_card, g_card), (y_cpu, r_cpu, g_cpu) = runs
+    assert len(r_card) == len(r_cpu) == 1
+    np.testing.assert_array_equal(r_card[0], r_cpu[0])
+    assert np.abs(y_card - y_cpu).max() <= 1e-5 * np.abs(y_cpu).max()
+    for a, b in zip(g_card, g_cpu):
+        assert cs.rel_l2(a, b) <= 1e-4
+
+
+def test_mla_decode_card_matches_cpu(cuda):
+    """deepseek-v2-lite FULL widths cut to 2 layers (one dense, one MoE),
+    f32 with TF32 off, the same numpy weights on the card and on the CPU:
+    the absorbed MLA prefill and 4 decode steps over the compressed cache
+    within 1e-3 of the largest logit, the MoE layer routed alike."""
+    from repro_torch.models import common as MC
+    cs = _chip_smoke()
+    m = cs.cut_model(cs.MOE_ARCH)
+    np_params = cs.numpy_params(m.param_specs(), seed=1)
+    prompt = np.random.default_rng(2).integers(0, m.cfg.vocab, 64)
+    tf32, was = torch.backends.cuda.matmul.allow_tf32, MC.COMPUTE_DTYPE
+    torch.backends.cuda.matmul.allow_tf32 = False
+    MC.set_compute_dtype(torch.float32)
+    try:
+        got = []
+        for d in (cuda, "cpu"):
+            with cs.recorded_routes() as routed:
+                got.append((cs.forced_logits(
+                    m, MC.params_from_numpy(np_params, d), prompt,
+                    [1, 2, 3, 4], 128, d), routed))
+    finally:
+        MC.set_compute_dtype(was)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (card, r_card), (cpu, r_cpu) = got
+    for a, b in zip(card, cpu):
+        assert np.abs(a - b).max() <= cs.CARD_CPU_REL * np.abs(b).max()
+    assert len(r_card) == len(r_cpu) == 5
+    assert all(np.array_equal(a, b) for a, b in zip(r_card, r_cpu))
+
+
+def test_bf16_leaf_by_leaf_init_on_card(cuda):
+    """deepseek-v2-lite FULL's bf16 weights drawn leaf by leaf on the
+    card (``chip_smoke.bf16_params``): every leaf bf16, param_count + the
+    final norm's gains of them, peak memory within the bf16 bytes plus
+    one f32 leaf, and a ``ServeEngine`` holds those tensors, not a copy."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import common as MC
+    from repro_torch.serving import ServeEngine
+    cs = _chip_smoke()
+    m = get_arch(cs.MOE_ARCH).model()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = cs.bf16_params(m, cuda)
+    leaves = MC.tree_leaves(params)
+    n = sum(a.numel() for a in leaves)
+    assert all(a.dtype == torch.bfloat16 and a.is_cuda for a in leaves)
+    assert n == m.cfg.param_count() + m.cfg.d_model
+    biggest = max(math.prod(s.shape) for s in MC.tree_leaves(m.param_specs()))
+    assert torch.cuda.max_memory_allocated() - base <= \
+        2 * n + 4 * biggest + 2 ** 26
+    eng = ServeEngine(m, params, max_len=8, device=cuda)
+    assert all(a is b for a, b in zip(leaves,
+                                      MC.tree_leaves(eng.compute_params)))
+    del eng, params, leaves
+    torch.cuda.empty_cache()

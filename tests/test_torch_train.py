@@ -309,28 +309,26 @@ def test_train_cli_runs(tmp_path, capsys):
     assert C.COMPUTE_DTYPE == torch.float32
 
 
-@pytest.mark.parametrize("what", ["scan", "moe", "mla", "modality"])
+@pytest.mark.parametrize("what", ["scan", "vlm-scan", "zamba2-2.7b"])
 def test_unported_training_configs_are_refused(what):
     """The training path refuses what the port does not have: scanned
-    layers (also with remat), MoE and MLA (through ``build_cell``), and
-    archs with modality inputs (``input_specs``)."""
-    arch = get_arch(ARCH)
+    layers (with remat; and a VLM's backbone asked to scan, through
+    ``build_cell``) and the archs of families not ported
+    (``build_trainer`` of the SSM hybrid)."""
     if what == "scan":
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             TransformerLM(SMOKE, remat=True, scan_layers=True)
         return
-    if what == "modality":
-        arch = dataclasses.replace(arch, modality_inputs=lambda *a: {})
+    if what == "vlm-scan":
+        arch = get_arch("internvl2-26b")
+        arch = dataclasses.replace(arch, make_model=lambda smoke, tp, **kw:
+                                   get_arch("internvl2-26b").make_model(
+                                       smoke, tp, scan_layers=True, **kw))
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            input_specs(arch, "train_4k", smoke=True)
+            steps.build_cell(arch, "train_4k", device="cpu", smoke=True)
         return
-    change = (dict(n_experts=4, top_k=2, moe_d_ff=32) if what == "moe"
-              else dict(mla=True, kv_lora_rank=16))
-    arch = dataclasses.replace(arch, make_model=lambda smoke, tp, **kw:
-                               TransformerLM(dataclasses.replace(SMOKE, **change),
-                                             tp, **kw))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        steps.build_cell(arch, "train_4k", device="cpu", smoke=True)
+    with pytest.raises(KeyError):
+        train.build_trainer(what, smoke=True, device="cpu")
 
 
 def test_chip_smoke_train_helpers_on_the_cpu(tmp_path, remat_pair):
