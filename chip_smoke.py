@@ -151,6 +151,25 @@ Phases, one line each; any failure exits non-zero and prints no result:
              and internvl2-26b (256 seeded patch embeddings) at FULL
              widths cut to 2 layers, bf16: a 64-token prefill, 8 decode
              steps against teacher forcing, host ms, peak memory
+13. ssm      the SSM hybrid, RWKV6 and the encoder-decoder: zamba2-2.7b
+             (54 Mamba2 layers, a shared attention block after every 6th
+             with a 4,096-token ring), rwkv6-7b (32 layers) and
+             whisper-tiny (4 + 4 layers, 1,500 seeded frame embeddings)
+             at FULL width and depth, bf16 weights drawn leaf by leaf
+             (the zero- and one-initialised leaves as a trained model
+             holds them: ``draw_state_leaves``):
+             phase 10's ``serve_cell`` and ``serve_faults`` (16 requests
+             for zamba2, 8 for the other two, over the same 4 prompts; a
+             CPU twin's stats, bloom_probe by the route rule), decode
+             against teacher forcing over 16 prompt tokens (every teacher
+             prefill one chunk) at bf16 within TF_REL_BF16 (RWKV6 its
+             own, SSM_TF_REL_BF16), each cache leaf's lost-state control
+             above that bound, and at f32 (TF32 off) within TF_REL_F32; host ms of prefill and decode, one decode step
+             profiled, the prefix-cache payload's bytes, peak memory, the
+             decode bound; the card against the CPU at f32 (zamba2 cut to
+             6 layers, rwkv6 to 2, whisper whole): prefill and a decode
+             step within CARD_CPU_REL, the loss and its gradients at seq
+             64 (whisper's gradients within SSM_GRAD_REL)
 
 Then one JSON line of kernel records, the card line and the result line.
 Launch counts are set to 0 just before each path is driven and read just
@@ -171,7 +190,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from dataclasses import replace
+from dataclasses import asdict, replace
 
 import numpy as np
 
@@ -508,10 +527,11 @@ def lm_requests(vocab: int, n_requests: int, *, max_new: int = LM_MAX_NEW,
 
 def serve_cell(model, params, device, *, n_requests: int = LM_REQUESTS,
                max_len: int = LM_MAX_LEN, reset=lambda: None, read=dict,
-               **req_kw) -> dict:
+               extra=None, **req_kw) -> dict:
     """One ``ServeEngine`` on ``device`` runs the same request stream twice
     (the second run all prefix-cache hits); a fresh engine then runs one
-    request per prompt. ``reset()`` / ``read()`` around each run; each
+    request per prompt. ``extra`` joins every prefill's batch (whisper's
+    frame embeddings). ``reset()`` / ``read()`` around each run; each
     run's outputs, cumulative ``stats()``, launches and host seconds."""
     from repro_torch.serving import ServeEngine
     vocab = model.cfg.vocab
@@ -521,7 +541,7 @@ def serve_cell(model, params, device, *, n_requests: int = LM_REQUESTS,
         prompts, reqs = lm_requests(vocab, n_requests, **req_kw)
         reset()
         t = time.perf_counter()
-        eng.run(reqs)
+        eng.run(reqs, extra_inputs=extra)
         runs.append({"s": time.perf_counter() - t, "launches": read(),
                      "outputs": [r.output for r in reqs],
                      "stats": eng.stats(),
@@ -529,7 +549,7 @@ def serve_cell(model, params, device, *, n_requests: int = LM_REQUESTS,
     fresh = ServeEngine(model, params, max_len=max_len, device=device)
     _, reqs = lm_requests(vocab, len(prompts), **req_kw)
     reset()
-    fresh.run(reqs)
+    fresh.run(reqs, extra_inputs=extra)
     return {"runs": runs, "fresh": [r.output for r in reqs],
             "fresh_launches": read(), "prompts": prompts, "engine": eng}
 
@@ -642,13 +662,14 @@ def numpy_params(specs, seed: int):
 
 
 def forced_logits(model, params, prompt, tokens, max_len: int,
-                  device) -> list:
-    """The logits (numpy f32) of a prefill over ``prompt`` and of one
-    decode step for each of ``tokens``."""
+                  device, extra=None) -> list:
+    """The logits (numpy f32) of a prefill over ``prompt`` (``extra``
+    joins its batch) and of one decode step for each of ``tokens``."""
     import torch
     with torch.inference_mode():
         t = torch.from_numpy(np.asarray(prompt, np.int32)[None]).to(device)
-        lg, cache = model.prefill(params, {"tokens": t}, max_len)
+        lg, cache = model.prefill(params, {"tokens": t, **(extra or {})},
+                                  max_len)
         out = [lg.float().cpu().numpy()]
         for tok in tokens:
             step = torch.tensor([[tok]], dtype=torch.int32, device=device)
@@ -940,19 +961,177 @@ def cut_cell(arch_id: str, device, *, prompt_len: int = CUT_PROMPT,
             "decode_ms": ms["decode"], "patches": n_vis}
 
 
-def loss_grad_parts(model, np_params, tokens, device) -> tuple:
-    """The model's loss (float) on ``tokens`` [B, S + 1] and its gradient
-    leaves (numpy f32, ``tree_leaves`` order), from numpy params on
-    ``device``."""
+def loss_grad_parts(model, np_params, tokens, device, extra=None) -> tuple:
+    """The model's loss (float) on ``tokens`` [B, S + 1] (``extra``
+    joins the batch, moved to ``device``) and its gradient leaves (numpy
+    f32, ``tree_leaves`` order), from numpy params on ``device``."""
     import torch
     from repro_torch.launch.steps import loss_and_grads
     from repro_torch.models import common as MC
     params = MC.params_from_numpy(np_params, device)
     t = torch.from_numpy(np.asarray(tokens, np.int32)).to(device)
-    loss, grads = loss_and_grads(model, params, {"tokens": t[:, :-1],
-                                                 "labels": t[:, 1:]})
+    loss, grads = loss_and_grads(model, params, {
+        "tokens": t[:, :-1], "labels": t[:, 1:],
+        **{k: v.to(device) for k, v in (extra or {}).items()}})
     return float(loss), [g.float().cpu().numpy()
                          for g in MC.tree_leaves(grads)]
+
+
+# -- phase 13: the SSM hybrid, RWKV6 and the encoder-decoder ----------------
+SSM_ARCHS = ("zamba2-2.7b", "rwkv6-7b", "whisper-tiny")
+# card against CPU at f32 (TF32 off): zamba2 at FULL widths cut to 6
+# layers (cut to 2 it has no shared block, which sits after layer 5 of
+# each 6), rwkv6 cut to 2, whisper whole (None)
+SSM_CPU_LAYERS = {"zamba2-2.7b": 6, "rwkv6-7b": 2, "whisper-tiny": None}
+# teacher forcing over the first 16 prompt tokens: every teacher prefill
+# (16 + 15 tokens at most) is one chunk below 64, which the chunk assert
+# of _ssd_chunk / _chunk_wkv admits (65-79 tokens would be refused)
+SSM_TF_PROMPT = 16
+# requests of the serve cells (LM_REQUESTS for zamba2-2.7b, the phase's
+# headline): with 16 for all three the whole run took 917 s (NVIDIA H100
+# 80GB HBM3, 700 W), past the 900 s kept under the 1,200 s limit, so
+# rwkv6 and whisper serve 8 over the same 4 prompts (0.5 and 0.75 of the
+# prefill tokens saved)
+SSM_REQUESTS = {"rwkv6-7b": 8, "whisper-tiny": 8}
+# the decode bound's extra bytes for an encoder-decoder: each decode
+# step recomputes every decoder layer's cross-attention K/V over the
+# encoder output, as the reference does: memory read once (2 B a value),
+# K and V written and read back by the attention
+ENCDEC_KV_PASSES = 5
+
+
+# decode against teacher forcing at bf16: TF_REL_BF16 but for rwkv6-7b.
+# Its 32 layers read 0.146-0.228 on the card over the 15 steps with the
+# zero-initialised leaves at zero, 0.2155-0.236 with draw_state_leaves'
+# (NVIDIA H100 80GB HBM3, 700 W), while the same steps at f32 agree to
+# TF_REL_F32: the two paths compute the same function and the stack
+# multiplies each layer's bf16 roundings (the WKV state sums r.k over the
+# history unnormalised; the channel mix squares its ReLU). The bound is
+# twice the largest step, rounded up. A decode that lost its whole state
+# (lost_state_rels' "all", 1.416) must read above it; one that lost a
+# single kind of leaf can read below a bf16 bound (rwkv6's xc 0.286,
+# zamba2's s 0.016, whisper's k 0.033), and is held by the f32 check,
+# where every kind reads above TF_REL_F32.
+SSM_TF_REL_BF16 = {"rwkv6-7b": 0.5}
+# the card against the CPU at f32: each gradient leaf's relative L2, as
+# phase 12 holds it (MOE_GRAD_REL), but for whisper-tiny: its decoder's
+# cross-attention wq / wk gradients sum over 1,500 frames whose softmax
+# weights are near-uniform at random init, small differences of large
+# terms, and the card measured 1.0075e-4 against the CPU on one of them
+# (NVIDIA H100 80GB HBM3, 700 W); three times that
+SSM_GRAD_REL = {"whisper-tiny": 3e-4}
+SSM_STATE_SEED = 3
+# phase 13's weights hold the zero-initialised leaves as a trained model
+# holds them, so that the decay, the bonus, the token shift and the skip
+# carry state on the card: drawn uniform over the ranges of the published
+# inits (RWKV6's w0 in [-6, -1], per-token decays exp(-exp(w0)) of 0.69
+# to 0.9975; its bonus u in [-0.1, 1]; its lerps mu_* in [0, 1]; Mamba2's
+# A in [1, 16] and dt log-uniform in [1e-3, 0.1] through the softplus's
+# inverse); the ones-initialised gains 1 + U(-0.1, 0.1)
+STATE_LEAVES = {
+    "w0": lambda rng, n: rng.uniform(-6.0, -1.0, n),
+    "u": lambda rng, n: rng.uniform(-0.1, 1.0, n),
+    "mu": lambda rng, n: rng.uniform(0.0, 1.0, n),
+    "a_log": lambda rng, n: np.log(rng.uniform(1.0, 16.0, n)),
+    "dt_bias": lambda rng, n: (lambda dt: dt + np.log(-np.expm1(-dt)))(
+        np.exp(rng.uniform(math.log(1e-3), math.log(0.1), n))),
+    "ones": lambda rng, n: 1.0 + rng.uniform(-0.1, 0.1, n),
+}
+
+
+def draw_state_leaves(specs, params, seed: int):
+    """Replace in place the zero- and one-initialised leaves of ``params``
+    (numpy arrays or tensors, ``specs`` its ParamSpec tree) by
+    STATE_LEAVES' draws from a seed; the same seed gives the same values
+    in either form. Returns ``params``."""
+    import torch
+    rng = np.random.default_rng(seed)
+
+    def walk(spec, tree):
+        for k, sp in (spec.items() if isinstance(spec, dict)
+                      else enumerate(spec)):
+            if isinstance(sp, (dict, list)):
+                walk(sp, tree[k])
+            elif sp.init in ("zeros", "ones"):
+                name = ("ones" if sp.init == "ones" else
+                        "mu" if k.startswith("mu_") else k)
+                a = STATE_LEAVES[name](rng, sp.shape).astype(np.float32)
+                leaf = tree[k]
+                tree[k] = a if isinstance(leaf, np.ndarray) else \
+                    torch.from_numpy(a).to(leaf.device, leaf.dtype)
+    walk(specs, params)
+    return params
+
+
+def lost_state_rels(model, params, prompt, tok: int, max_len: int,
+                    device, extra=None) -> dict:
+    """The control of decode against teacher forcing: for each kind of
+    cache leaf (its dict key: ``s``, ``conv``, ``xt``, ``k``,
+    ``memory``...) and for all of them (``all``), the relative L2 of the
+    logits of a decode step of ``tok`` from the prompt's cache with every
+    leaf of that kind zeroed, against a prefill over the prompt and
+    ``tok``. A decode that lost that state reads this; a bound it does
+    not exceed could not tell."""
+    import torch
+    vocab = getattr(model.cfg, "lm", model.cfg).vocab
+
+    def kinds(tree):
+        if isinstance(tree, dict):
+            return {k for k, v in tree.items() if isinstance(v, torch.Tensor)
+                    } | {n for v in tree.values() for n in kinds(v)}
+        if isinstance(tree, list):
+            return {n for v in tree for n in kinds(v)}
+        return set()
+
+    def zeroed(tree, names):
+        if isinstance(tree, dict):
+            return {k: torch.zeros_like(v) if k in names else
+                    zeroed(v, names) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [zeroed(v, names) for v in tree]
+        return tree
+
+    def fill(tokens):
+        t = torch.from_numpy(np.asarray(tokens, np.int32)[None]).to(device)
+        return model.prefill(params, {"tokens": t, **(extra or {})},
+                             max_len)
+
+    with torch.inference_mode():
+        _, cache = fill(prompt)
+        ref = fill(np.append(prompt, tok))[0][..., :vocab].float()
+        step = torch.tensor([[tok]], dtype=torch.int32, device=device)
+        names = sorted(kinds(cache))
+        out = {}
+        for kind, zero in [(n, {n}) for n in names] + [("all", set(names))]:
+            lg = model.decode_step(params, zeroed(cache, zero), step)[0]
+            out[kind] = float((lg[..., :vocab].float() - ref).norm()
+                              / ref.norm())
+    return out
+
+
+def payload_bytes(cache) -> int:
+    """Bytes of a decode cache's tensors: what the prefix cache copies to
+    the host on an insert and uploads on a hit (beside the logits)."""
+    from repro_torch.models.common import tree_leaves
+    return sum(a.numel() * a.element_size() for a in tree_leaves(cache)
+               if hasattr(a, "numel"))
+
+
+def decode_bound_bytes(model) -> int:
+    """Bytes one bf16 decode step must move at least: every weight but the
+    embedding table (one row of it is read a token) once; an
+    encoder-decoder adds its decoder layers' cross-attention K/V
+    recomputed over the encoder output (ENCDEC_KV_PASSES passes of
+    n_frames x d_model bf16 values a layer)."""
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.encdec import EncDecLM
+    specs = model.param_specs()
+    n = sum(math.prod(s.shape) for s in tree_leaves(specs))
+    out = 2 * (n - math.prod(specs["embed"].shape))
+    if isinstance(model, EncDecLM):
+        c = model.cfg
+        out += c.n_layers * ENCDEC_KV_PASSES * c.n_frames * c.d_model * 2
+    return out
 
 
 def main() -> None:
@@ -993,6 +1172,7 @@ def main() -> None:
             exact_probe_ref, xor_probe, xor_probe_gather, xor_probe_onchip,
             xor_probe_ref)
         from repro_torch.configs import get_arch
+        from repro_torch.configs.base import draw_modality_inputs
         from repro_torch.core.learned import (LearnedFilter,
                                               synth_url_dataset,
                                               train_score_model)
@@ -2113,7 +2293,7 @@ def main() -> None:
         tier_layouts = [((lay.m_bits, lay.k, lay.seed, lay.offset),)
                         for lay in pstate.bank.layouts]
         out = []
-        for launches, n_keys in ([(r["launches"], LM_REQUESTS)
+        for launches, n_keys in ([(r["launches"], len(r["outputs"]))
                                   for r in cell["runs"]]
                                  + [(cell["fresh_launches"], LM_PROMPTS)]):
             rule = rule_paths(tier_layouts, n_keys, pstate.tables)
@@ -2123,7 +2303,7 @@ def main() -> None:
             out.append(launches)
         return out
 
-    def twin_cell(vocab: int) -> dict:
+    def twin_cell(vocab: int, n_requests: int = LM_REQUESTS) -> dict:
         """``serve_cell`` on the CPU with a 1-layer, 64-wide dense model of
         ``vocab``: the same request stream, so the same prefix-cache
         stats."""
@@ -2135,7 +2315,7 @@ def main() -> None:
         try:
             return serve_cell(twin_model, MC.init_from_specs(
                 twin_model.param_specs(), torch.Generator().manual_seed(0),
-                "cpu"), "cpu")
+                "cpu"), "cpu", n_requests=n_requests)
         finally:
             MC.set_compute_dtype(was)
 
@@ -2751,8 +2931,199 @@ def main() -> None:
     print(f"moe phase: {time.monotonic() - t12:.0f} s | {card} | total "
           f"{time.monotonic() - t_start:.0f} s", flush=True)
 
-    q9["bloom_probe"] += sum(l["bloom_probe"] for l in pc10 + pc12)
-    q9["bloom_gather"] += sum(l["gather"] for l in pc10 + pc12)
+    # -- 13. the SSM hybrid, RWKV6 and the encoder-decoder at full width ----
+    # each served at FULL width and depth (bf16 weights drawn leaf by leaf)
+    # by phase 10's serve_cell and serve_faults; decode against teacher
+    # forcing at bf16 and at f32 (TF32 off) at full depth; the card
+    # against the CPU at f32 from the same numpy weights
+    t13 = time.monotonic()
+    pc13 = []
+    for arch_id in SSM_ARCHS:
+        ta = time.monotonic()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        arch = get_arch(arch_id)
+        model = arch.model()
+        cfg = model.cfg
+        # whisper's 1,500 frame embeddings, drawn as launch/serve.py draws
+        # them (normal x 0.25 from a seed); {} for the other two
+        extra = draw_modality_inputs(arch, cfg, 1, False,
+                                     np.random.default_rng(5), dev)
+        t = time.perf_counter()
+        params = draw_state_leaves(model.param_specs(),
+                                   bf16_params(model, dev), SSM_STATE_SEED)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        leaves = MC.tree_leaves(params)
+        n_params = sum(a.numel() for a in leaves)
+        n_spec = sum(math.prod(sp.shape)
+                     for sp in MC.tree_leaves(model.param_specs()))
+        check(n_params == n_spec
+              and all(a.dtype == torch.bfloat16 for a in leaves),
+              f"{arch_id} FULL has {n_params} parameters, its specs "
+              f"{n_spec} ({ {str(a.dtype) for a in leaves} })")
+        init_gb = torch.cuda.max_memory_allocated() / 1e9
+        n_req = SSM_REQUESTS.get(arch_id, LM_REQUESTS)
+        cell = serve_cell(model, params, dev, n_requests=n_req,
+                          reset=reset_counts, read=bloom_launches,
+                          extra=extra)
+        eng = cell["engine"]
+        check(all(a is b for a, b in zip(
+            leaves, MC.tree_leaves(eng.compute_params))),
+            f"{arch_id}: the engine made a second copy of the bf16 weights")
+        faults = serve_faults(cell, twin_cell(cfg.vocab, n_req))
+        check(not faults, f"{arch_id} serve cell: {faults}")
+        pc13 += serve_launches(cell)
+        prompt0 = cell["prompts"][0]
+        tf_bound = SSM_TF_REL_BF16.get(arch_id, TF_REL_BF16)
+        gen, tf_errs, tf_flips = teacher_forcing(
+            model, params, prompt0[:SSM_TF_PROMPT], LM_MAX_NEW, LM_MAX_LEN,
+            dev, extra)
+        faults = tf_faults(tf_errs, tf_flips, tf_bound)
+        check(not faults, f"{arch_id} decode != teacher forcing at bf16: "
+              f"{faults}")
+        lost = lost_state_rels(model, params, prompt0[:SSM_TF_PROMPT],
+                               gen[0], LM_MAX_LEN, dev, extra)
+        check(lost["all"] > tf_bound,
+              f"{arch_id}: a decode that lost its state reads {lost}, not "
+              f"above the bound {tf_bound}")
+        tok0 = torch.from_numpy(prompt0[None]).to(dev)
+        step = torch.tensor([[cell["runs"][0]["outputs"][0][0]]],
+                            dtype=torch.int32, device=dev)
+        with torch.inference_mode():
+            def prefill0():
+                return model.prefill(params, {"tokens": tok0, **extra},
+                                     LM_MAX_LEN)
+            prefill_ms = host_ms(prefill0, reps=5)
+            cache0 = prefill0()[1]
+            decode_ms = host_ms(lambda: model.decode_step(params, cache0,
+                                                          step), reps=20)
+            decode_rows = device_rows(lambda: model.decode_step(
+                params, cache0, step))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        pay = payload_bytes(cache0)
+        bound_bytes = decode_bound_bytes(model)
+        bound_ms = bound_bytes / HBM_BYTES_PER_S * 1e3
+        r1, r2 = cell["runs"]
+        print(f"ssm serve: {arch_id} FULL ({json.dumps(asdict(cfg))}"
+              f"; {n_params} bf16 parameters drawn leaf by leaf on the card in "
+              f"{init_s:.1f} s, peak {init_gb:.2f} GB; param_count "
+              f"{cfg.param_count()})"
+              + (f", {cfg.n_frames} seeded frame embeddings" if extra else "")
+              + f", max_len {LM_MAX_LEN} | {n_req} requests over "
+              f"{LM_PROMPTS} {LM_PROMPT_LEN}-token prompts, max_new "
+              f"{LM_MAX_NEW}, twice, then a fresh engine: no fault; stats == "
+              f"the CPU twin's: run 1 {json.dumps(r1['stats'])}, run 2 "
+              f"{json.dumps(r2['stats'])} | bloom_probe launches a run "
+              f"{pc13[-3:]} | decode == teacher forcing over the first "
+              f"{SSM_TF_PROMPT} prompt tokens, {len(tf_errs)} steps: relative "
+              f"L2 max {max(e for e, _ in tf_errs):.4g} (<= {tf_bound}, "
+              f"a decode from the prompt's cache with one kind of leaf, or "
+              f"all, zeroed reads "
+              f"{ {k: round(v, 4) for k, v in lost.items()} }), "
+              f"all steps {[round(e, 4) for e, _ in tf_errs]} | {card}",
+              flush=True)
+        print(f"ssm serve times {arch_id} (host clock, a warm call first): "
+              f"prefill {prefill_ms:.2f} ms per {LM_PROMPT_LEN}-token "
+              f"request; decode {decode_ms:.3f} ms a token; one step "
+              f"profiled: {busy(device_totals(decode_rows), decode_ms)}; top "
+              f"device operations: {device_top(decode_rows)} | decode bound "
+              f"{bound_ms:.3f} ms ({bound_bytes / 1e9:.3f} GB at 3.35 TB/s: "
+              f"the bf16 weights but the embedding table"
+              + (f", and {cfg.n_layers} layers' cross-attention K/V "
+                 f"recomputed over {cfg.n_frames} frames" if extra else "")
+              + f") | run 1 {r1['tokens']} tokens in {r1['s'] * 1e3:.0f} ms "
+              f"({r1['tokens'] / r1['s']:.1f} tokens/s), run 2 (all hits) "
+              f"{r2['tokens']} in {r2['s'] * 1e3:.0f} ms "
+              f"({r2['tokens'] / r2['s']:.1f} tokens/s) | prefix-cache "
+              f"payload {pay} B a request (the decode cache at max_len "
+              f"{LM_MAX_LEN}) | peak device memory allocated {peak_gb:.2f} "
+              f"GB | {card}", flush=True)
+        del params, leaves, eng, cell, cache0
+        torch.cuda.empty_cache()
+        # decode against teacher forcing at f32 (TF32 off), full depth: f32
+        # weights from the same seed, the bf16 ones freed
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        MC.set_compute_dtype(torch.float32)
+        params = draw_state_leaves(model.param_specs(), MC.init_from_specs(
+            model.param_specs(), torch.Generator(dev).manual_seed(0), dev),
+            SSM_STATE_SEED)
+        gen, f32_errs, f32_flips = teacher_forcing(
+            model, params, prompt0[:SSM_TF_PROMPT], LM_MAX_NEW, LM_MAX_LEN,
+            dev, extra)
+        f32_lost = lost_state_rels(model, params, prompt0[:SSM_TF_PROMPT],
+                                   gen[0], LM_MAX_LEN, dev, extra)
+        f32_gb = torch.cuda.max_memory_allocated() / 1e9
+        del params
+        torch.cuda.empty_cache()
+        faults = tf_faults(f32_errs, f32_flips, TF_REL_F32)
+        check(not faults, f"{arch_id} decode != teacher forcing at f32: "
+              f"{faults}")
+        check(min(f32_lost.values()) > TF_REL_F32,
+              f"{arch_id}: at f32 a decode that lost a cache leaf reads "
+              f"{f32_lost}, not above {TF_REL_F32}")
+        # the card against the CPU at f32: prefill and one decode step, the
+        # loss and its gradients at batch 1, seq 64
+        n_cut = SSM_CPU_LAYERS[arch_id]
+        small = model if n_cut is None else cut_model(arch_id, n_cut)
+        np_params = draw_state_leaves(small.param_specs(), numpy_params(
+            small.param_specs(), seed=1), SSM_STATE_SEED)
+        forced = np.random.default_rng(9).integers(0, cfg.vocab, 1).tolist()
+        toks = np.random.default_rng(12).integers(0, cfg.vocab,
+                                                  (1, MOE_CPU_SEQ + 1))
+        parts = []
+        for where in (dev, "cpu"):
+            ex = {k: v.to(where) for k, v in extra.items()}
+            t = time.perf_counter()
+            logits = forced_logits(small, MC.params_from_numpy(
+                np_params, where), prompt0, forced, LM_MAX_LEN, where, ex)
+            parts.append((logits, loss_grad_parts(small, np_params, toks,
+                                                  where, ex),
+                          time.perf_counter() - t))
+        MC.set_compute_dtype(torch.bfloat16)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        del np_params
+        (lg_card, (loss_card, g_card), card_s), \
+            (lg_cpu, (loss_cpu, g_cpu), cpu_s) = parts
+        # over the real vocabulary: a padded one's -1e30 logits would be
+        # the largest |value|
+        rel = [float(np.abs(a - b)[..., :cfg.vocab].max()
+                     / np.abs(b[..., :cfg.vocab]).max())
+               for a, b in zip(lg_card, lg_cpu)]
+        loss_rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+        grad_rel, worst = max((rel_l2(a, b), i)
+                              for i, (a, b) in enumerate(zip(g_card, g_cpu)))
+        grad_bound = SSM_GRAD_REL.get(arch_id, MOE_GRAD_REL)
+        check(max(rel) <= CARD_CPU_REL and loss_rel <= MOE_LOSS_REL
+              and grad_rel <= grad_bound,
+              f"{arch_id} card != CPU at f32: logits {rel}, loss {loss_rel}, "
+              f"gradients {grad_rel} (leaf {worst})")
+        print(f"ssm f32 {arch_id}: teacher forcing at FULL depth, TF32 off, "
+              f"f32 weights from the same seed: {len(f32_errs)} decode steps, "
+              f"relative L2 max {max(e for e, _ in f32_errs):.4g} (<= "
+              f"{TF_REL_F32}), max |diff| {max(e for _, e in f32_errs):.4g}, "
+              f"with one kind of cache leaf, or all, zeroed "
+              f"{ {k: round(v, 4) for k, v in f32_lost.items()} }, "
+              f"peak {f32_gb:.2f} GB | card vs CPU, "
+              + ("whole" if n_cut is None else
+                 f"FULL widths cut to {n_cut} layers")
+              + f", numpy weights: prefill + {len(forced)} decode step, max "
+              f"|card - cpu| / max |cpu| {[f'{r:.3g}' for r in rel]} (<= "
+              f"{CARD_CPU_REL}); loss at batch 1, seq {MOE_CPU_SEQ} "
+              f"{loss_card:.6f} vs {loss_cpu:.6f} (relative {loss_rel:.3g} <= "
+              f"{MOE_LOSS_REL}), gradient leaves relative L2 max "
+              f"{grad_rel:.5g} (<= {grad_bound}; leaf {worst} in "
+              f"tree_leaves order) over {len(g_cpu)} leaves "
+              f"| card {card_s:.1f} s, CPU {cpu_s:.1f} s | {arch_id} "
+              f"{time.monotonic() - ta:.0f} s | {card}", flush=True)
+        del parts, g_card, g_cpu, small, model
+    print(f"ssm phase: {time.monotonic() - t13:.0f} s | {card} | total "
+          f"{time.monotonic() - t_start:.0f} s", flush=True)
+
+    q9["bloom_probe"] += sum(l["bloom_probe"] for l in pc10 + pc12 + pc13)
+    q9["bloom_gather"] += sum(l["gather"] for l in pc10 + pc12 + pc13)
     for r in records:
         r["launches"] += q9.get(r["name"], 0)
         if r["name"] == "bloom_probe":

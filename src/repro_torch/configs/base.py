@@ -72,7 +72,8 @@ def applicable_shapes(arch: ArchDef) -> list[str]:
 
 def draw_modality_inputs(arch: ArchDef, cfg, B: int, smoke: bool, rng,
                          device) -> dict:
-    """The arch's modality inputs (a VLM's patch embeddings) for a batch
+    """The arch's modality inputs (a VLM's patch embeddings, whisper's
+    frame embeddings) for a batch
     of ``B``, drawn from the numpy generator ``rng`` as the reference's
     entry points draw them (normal x 0.25, then each spec's dtype), on
     ``device``; {} for an arch without them."""

@@ -15,6 +15,7 @@ before the first step.
 """
 from __future__ import annotations
 
+import inspect
 from dataclasses import dataclass
 
 import torch
@@ -106,8 +107,16 @@ def build_cell(arch: ArchDef, shape_name: str, *, device="cuda",
         # training wants small score chunks (activation memory); prefill can
         # afford larger; decode has Sq=1 so it is irrelevant.
         q_chunk = 512 if s.kind == "train" else 1024
-    m = model if model is not None else arch.model(
-        smoke=smoke, remat=remat, q_chunk=q_chunk)
+    if model is not None:
+        m = model
+    else:
+        # the model classes take different keywords (EncDecLM no remat,
+        # RWKV6LM no q_chunk): pass those its constructor names
+        kw = {"remat": remat, "q_chunk": q_chunk}
+        accepts = inspect.signature(
+            type(arch.model(smoke=True)).__init__).parameters
+        m = arch.model(smoke=smoke,
+                       **{k: v for k, v in kw.items() if k in accepts})
     pspecs = m.param_specs()
     ispecs = input_specs(arch, shape_name, smoke=smoke, model=m)
     if s.kind == "train":

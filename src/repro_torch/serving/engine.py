@@ -50,12 +50,15 @@ def payload_to_device(payload, device):
 
 
 class ServeEngine:
-    """Serves ``model`` (a ``TransformerLM``) on ``device``: the card by
-    default, ``"cpu"`` for the plain versions. The weights are held once in
-    the compute dtype (``models.common.COMPUTE_DTYPE`` when the engine is
-    made): the reference casts each weight inside every einsum, the same
-    cast, so the numbers are the same and a decode step reads 2 B a bf16
-    weight instead of 4 + 2 + 2."""
+    """Serves ``model`` (any of the port's LMs: ``TransformerLM``, ``VLM``,
+    ``Zamba2LM``, ``RWKV6LM``, ``EncDecLM``; the engine calls only
+    ``prefill`` and ``decode_step`` and reads ``cache["len"]``) on
+    ``device``: the card by default, ``"cpu"`` for the plain versions. The
+    weights are held once in the compute dtype
+    (``models.common.COMPUTE_DTYPE`` when the engine is made): the
+    reference casts each weight inside every einsum, the same cast, so
+    the numbers are the same and a decode step reads 2 B a bf16 weight
+    instead of 4 + 2 + 2."""
 
     def __init__(self, model, params, max_len: int = 128,
                  cache_tiers: list[TierSpec] | None = None, seed: int = 0,

@@ -660,3 +660,43 @@ def test_bf16_leaf_by_leaf_init_on_card(cuda):
                                       MC.tree_leaves(eng.compute_params)))
     del eng, params, leaves
     torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("arch_id", ["zamba2-2.7b", "rwkv6-7b",
+                                     "whisper-tiny"])
+def test_ssm_rwkv_encdec_smoke_card_matches_cpu(cuda, arch_id):
+    """The smoke Zamba2, RWKV6 and whisper models at f32 with TF32 off,
+    the same numpy weights (and whisper's frames) on the card and on the
+    CPU: a 16-token prefill (one smoke chunk) and 4 decode steps within
+    ``CARD_CPU_REL`` of the largest logit; the loss within 1e-5 and each
+    gradient leaf within 1e-4 relative L2 at seq 16."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import common as MC
+    cs = _chip_smoke()
+    m = get_arch(arch_id).model(smoke=True)
+    np_params = cs.numpy_params(m.param_specs(), seed=1)
+    rng = np.random.default_rng(2)
+    prompt = rng.integers(0, m.cfg.vocab, 16)
+    toks = rng.integers(0, m.cfg.vocab, (1, 17))
+    frames = {}
+    if arch_id == "whisper-tiny":
+        frames = {"frames": torch.from_numpy(rng.normal(
+            size=(1, m.cfg.n_frames, m.cfg.d_model)).astype(np.float32))}
+    tf32, was = torch.backends.cuda.matmul.allow_tf32, MC.COMPUTE_DTYPE
+    torch.backends.cuda.matmul.allow_tf32 = False
+    MC.set_compute_dtype(torch.float32)
+    try:
+        got = []
+        for d in (cuda, "cpu"):
+            extra = {k: v.to(d) for k, v in frames.items()}
+            got.append((cs.forced_logits(m, MC.params_from_numpy(np_params, d),
+                                         prompt, [1, 2, 3, 4], 32, d, extra),
+                        cs.loss_grad_parts(m, np_params, toks, d, frames)))
+    finally:
+        MC.set_compute_dtype(was)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (card, (loss_card, g_card)), (cpu, (loss_cpu, g_cpu)) = got
+    for a, b in zip(card, cpu):
+        assert np.abs(a - b).max() <= cs.CARD_CPU_REL * np.abs(b).max()
+    assert abs(loss_card - loss_cpu) <= 1e-5 * abs(loss_cpu)
+    assert max(cs.rel_l2(a, b) for a, b in zip(g_card, g_cpu)) <= 1e-4

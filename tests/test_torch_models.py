@@ -154,16 +154,21 @@ def test_head_padding_bitwise_exact():
 @pytest.mark.parametrize("what", ["whisper-tiny", "rwkv6-7b", "zamba2-2.7b",
                                   "scan"])
 def test_unported_configs_are_refused(what):
-    """What the port does not have: the enc-dec, RWKV6 and SSM-hybrid
-    archs (``get_arch`` does not know them; the reference's registry
-    does) and scanned layers."""
+    """What the port does not have: scanned layers. The enc-dec, RWKV6
+    and SSM-hybrid archs it has: ``get_arch`` knows each, its FULL and
+    SMOKE configs equal the reference's field by field, and so does its
+    ``param_count``."""
     if what == "scan":
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             TransformerLM(SMOKE, scan_layers=True)
         return
-    assert jax_get_arch(what).arch_id == what
-    with pytest.raises(KeyError):
-        get_arch(what)
+    arch, ref = get_arch(what), jax_get_arch(what)
+    assert arch.arch_id == ref.arch_id == what
+    assert (arch.family, arch.subquadratic) == (ref.family, ref.subquadratic)
+    for smoke in (False, True):
+        cfg, ref_cfg = arch.model(smoke=smoke).cfg, ref.model(smoke=smoke).cfg
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(ref_cfg)
+        assert cfg.param_count() == ref_cfg.param_count()
 
 
 def test_configs_match_the_reference():

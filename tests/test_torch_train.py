@@ -12,6 +12,7 @@ equal."""
 import dataclasses
 import functools
 import importlib.util
+import inspect
 import pathlib
 
 import numpy as np
@@ -312,9 +313,9 @@ def test_train_cli_runs(tmp_path, capsys):
 @pytest.mark.parametrize("what", ["scan", "vlm-scan", "zamba2-2.7b"])
 def test_unported_training_configs_are_refused(what):
     """The training path refuses what the port does not have: scanned
-    layers (with remat; and a VLM's backbone asked to scan, through
-    ``build_cell``) and the archs of families not ported
-    (``build_trainer`` of the SSM hybrid)."""
+    layers (with remat; a VLM's backbone asked to scan, through
+    ``build_cell``; and the SSM hybrid's and RWKV6's layers, which
+    ``build_trainer`` of zamba2-2.7b otherwise builds)."""
     if what == "scan":
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             TransformerLM(SMOKE, remat=True, scan_layers=True)
@@ -327,8 +328,15 @@ def test_unported_training_configs_are_refused(what):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             steps.build_cell(arch, "train_4k", device="cpu", smoke=True)
         return
-    with pytest.raises(KeyError):
-        train.build_trainer(what, smoke=True, device="cpu")
+    from repro_torch.models.rwkv6 import RWKV6LM
+    from repro_torch.models.ssm import Zamba2LM
+    for cls, arch_id in ((Zamba2LM, what), (RWKV6LM, "rwkv6-7b")):
+        cfg = get_arch(arch_id).model(smoke=True).cfg
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            cls(cfg, scan_layers=True)
+        assert "remat" not in inspect.signature(cls).parameters
+    _, _, m = train.build_trainer(what, smoke=True, device="cpu")
+    assert isinstance(m, Zamba2LM)
 
 
 def test_chip_smoke_train_helpers_on_the_cpu(tmp_path, remat_pair):
