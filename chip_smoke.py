@@ -170,6 +170,22 @@ Phases, one line each; any failure exits non-zero and prints no result:
              6 layers, rwkv6 to 2, whisper whole): prefill and a decode
              step within CARD_CPU_REL, the loss and its gradients at seq
              64 (whisper's gradients within SSM_GRAD_REL)
+14. mesh     the row split over a ``DeviceMesh`` and the dry-run census: a
+             1-rank NCCL group (``launch.mesh.start_group``, a FileStore,
+             a timeout), ``FilterService(mesh=make_mesh((1,), ('data',)))``
+             over phase 7's five filters as built: member, probes and
+             stats equal to phase 7's one-device service on all 4,000,000
+             queries, one launch of each bank kernel by the path the rule
+             names at a rank's padded share, host ms of ``probe`` (median
+             of 5 after a warm call) in turns with a one-device service,
+             the all-gather's device time (``torch.profiler``, and the
+             gather alone at the probe's shape by CUDA events); then
+             ``launch.dryrun.run_cell`` for every (arch, shape) of
+             ``applicable_shapes`` at 16x16, 2x16x16 and the card's own
+             (1, 1) ``DeviceMesh``, on meta tensors (no device memory):
+             per-device argument GB and whether they fit the card, and
+             the (1, 1) llama3.2-1b ``train_4k`` params and AdamW bytes
+             equal to what phase 11 allocated
 
 Then one JSON line of kernel records, the card line and the result line.
 Launch counts are set to 0 just before each path is driven and read just
@@ -190,6 +206,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from dataclasses import asdict, replace
 
 import numpy as np
@@ -1134,6 +1151,280 @@ def decode_bound_bytes(model) -> int:
     return out
 
 
+
+# -- device timing, shared by the phases ------------------------------------
+def cuda_ms(fn, windows: int = TIME_WINDOWS) -> tuple[float, list]:
+    """Median ms per call over ``windows`` CUDA-event windows, each of
+    enough warm calls to cover WINDOW_MS; also every window's ms."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    est_ms = (time.perf_counter() - t0) * 1e3 / 3
+    iters = max(3, math.ceil(WINDOW_MS / est_ms))
+    per = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        per.append(start.elapsed_time(end) / iters)
+    return statistics.median(per), per
+
+
+def device_rows(fn):
+    """(device µs, count, name) of each device operation (kernels and
+    copies: the profiler's device-side events) in one call of ``fn``,
+    or why not measured. The CPU ops that launch them report the same
+    time as their own and are not counted again."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = [(e.self_device_time_total, e.count, e.key)
+                for e in prof.key_averages()
+                if e.device_type != DeviceType.CPU
+                and e.self_device_time_total > 0]
+    except Exception as exc:          # the profiler is optional here
+        return f"not measured ({exc})"
+    return rows or "not measured (no device-side events)"
+
+
+def device_totals(rows):
+    """(device ms, device operations) of ``device_rows``' rows."""
+    if isinstance(rows, str):
+        return rows
+    return sum(us for us, _, _ in rows) / 1e3, sum(c for _, c, _ in rows)
+
+
+def busy(prof, call_ms: float) -> str:
+    """The device's share of a call of ``call_ms`` host ms (timed
+    without the profiler)."""
+    if isinstance(prof, str):
+        return prof
+    dev_ms, ops = prof
+    return (f"{dev_ms:.3f} ms of device time in {ops} device "
+            f"operations (kernels and copies), device busy "
+            f"{100 * dev_ms / call_ms:.1f}% of a {call_ms:.1f} ms call")
+
+
+# -- phase 14: the row split over a DeviceMesh and the dry-run census -------
+MESH_TIMEOUT_S = 120.0             # the NCCL group's collective timeout
+MESH_REPEATS = 5                   # host-clock probes a median is taken of
+# the census's meshes: the production ones as data, and the card's own
+CENSUS_MESHES = ("single_pod_16x16", "multi_pod_2x16x16", "host_1x1")
+
+
+def host_median_ms(fn) -> float:
+    """Median host ms of MESH_REPEATS calls of ``fn`` after a warm call,
+    each ending in a device synchronise."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(MESH_REPEATS):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def mesh_faults(member, probes, stats: dict, want) -> list[str]:
+    """Where a mesh service's probe differs from the one-device service's
+    ``want`` = (member, probes, stats as_dict)."""
+    faults = []
+    if member.shape != want[0].shape or not (member == want[0]).all():
+        faults.append("member rows differ")
+    if probes.shape != want[1].shape or not (probes == want[1]).all():
+        faults.append("probes rows differ")
+    if stats != want[2]:
+        faults.append(f"stats {stats} != {want[2]}")
+    return faults
+
+
+def gather_rows(rows):
+    """The collective's rows of ``device_rows``' rows (NCCL kernels), or
+    why there are none."""
+    if isinstance(rows, str):
+        return rows
+    out = [r for r in rows if "nccl" in r[2].lower()
+           or "allgather" in r[2].lower().replace("_", "")]
+    return out or "not seen (no NCCL kernel among the call's device operations)"
+
+
+def census_rows(meshes: dict, archs=None) -> dict:
+    """``launch.dryrun.run_cell`` of every (arch, applicable shape) at
+    each of ``meshes`` ({name: mesh}) -> {(arch, shape): {mesh name:
+    record}}."""
+    from repro_torch.configs import REGISTRY, applicable_shapes
+    from repro_torch.launch.dryrun import run_cell
+    out = {}
+    for aid in sorted(REGISTRY) if archs is None else archs:
+        for sn in applicable_shapes(REGISTRY[aid]):
+            out[(aid, sn)] = {name: run_cell(aid, sn, mesh, name,
+                                             verbose=False)
+                              for name, mesh in meshes.items()}
+    return out
+
+
+def census_lines(cells: dict, device_bytes: int) -> list[str]:
+    """One line a cell: per-device argument GB at each mesh, and whether
+    the arguments alone fit a card of ``device_bytes``."""
+    lines = []
+    for (aid, sn), recs in cells.items():
+        parts = []
+        for name, rec in recs.items():
+            args = sum(rec["memory_model"]["args"].values())
+            parts.append(f"{name} {args / 1e9:.3f} GB "
+                         f"({'fits' if args <= device_bytes else 'over'})")
+        lines.append(f"census {aid} {sn}: args per device " + ", ".join(parts))
+    return lines
+
+
+def mesh_phase(bank, queries, want, train_arg_bytes: dict, counters, *,
+               device="cuda", card: str = "") -> tuple[dict, dict]:
+    """Phase 14 in a 1-rank process group (NCCL on the card, gloo on the
+    CPU; any failure to start it fails the run): ``mesh_probe_cell`` over
+    the filters of ``bank`` on a (1,) 'data' mesh, then ``census_cell`` with
+    the (1, 1) host mesh. -> the mesh probe's (launches, paths)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh, start_group
+    with tempfile.TemporaryDirectory() as group_dir:
+        try:
+            start_group(group_dir, 0, 1, device=device,
+                        timeout_s=MESH_TIMEOUT_S)
+            mesh = make_mesh((1,), ("data",), device=device)
+            host_mesh = make_host_mesh(device=device)
+        except Exception as exc:
+            fail(f"the 1-rank process group or its meshes did not start: "
+                 f"{exc!r}")
+        try:
+            out = mesh_probe_cell(bank, queries, want, mesh, counters,
+                                  card=card)
+            census_cell(host_mesh, train_arg_bytes, card=card)
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
+def mesh_probe_cell(bank, queries, want, mesh, counters, *, card: str = ""
+                    ) -> tuple[dict, dict]:
+    """``FilterService(mesh=mesh)`` over the filters of ``bank`` (as
+    built) against ``want`` = the one-device service's (member, probes,
+    stats as_dict) on ``queries``, bit for bit; one launch of each bank
+    kernel, by the path ``counters.rule`` gives at one rank's share of
+    the keys; host times in turns with the one-device service, the
+    profiled device time and the all-gather alone. ``counters`` reads the
+    kernels' launch counts: ``reset()``, ``launches()``, ``paths()`` and
+    ``rule(n_keys, words)``. -> (launches, paths)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.serving.filter_service import FilterService, row_share
+    device = torch.device(mesh.device_type)
+    built = bank.unpack()
+    msvc = FilterService(built, device=device, mesh=mesh)
+    one = FilterService(built, device=device)
+    check(msvc.bank.tables.tobytes() == bank.tables.tobytes(),
+          "the mesh service's bank differs from the one it was built from")
+    n = len(queries)
+    share = row_share(n, mesh.size())
+    counters.reset()
+    member, probes = msvc.probe(queries)
+    torch.cuda.synchronize()
+    launches, paths = counters.launches(), counters.paths()
+    faults = mesh_faults(member, probes, msvc.stats.as_dict(), want)
+    check(not faults, f"mesh FilterService != the one-device service on "
+          f"{n} queries: {faults}")
+    check(all(v == 1 for v in launches.values()),
+          f"the mesh probe launched {launches}, not one each")
+    rule = counters.rule(share, msvc.state.tables)
+    check(paths == rule, f"the mesh probe took paths {paths}, the rule at "
+          f"{share} keys a rank says {rule}")
+    # host times in turns (one device, mesh, mesh, one device)
+    one_ms = [host_median_ms(lambda: one.probe(queries))]
+    mesh_ms = [host_median_ms(lambda: msvc.probe(queries)),
+               host_median_ms(lambda: msvc.probe(queries))]
+    one_ms.append(host_median_ms(lambda: one.probe(queries)))
+    rows = device_rows(lambda: msvc.probe(queries))
+    gather = device_totals(gather_rows(rows))
+    # the all-gather alone at the probe's shape, by CUDA events:
+    # [2 x F, share] int32 rows read once and written once
+    g_in = torch.zeros(2 * len(built) * share, dtype=torch.int32,
+                       device=device)
+    g_out = torch.empty_like(g_in)
+    g_ms, _ = cuda_ms(lambda: dist.all_gather_into_tensor(
+        g_out, g_in, group=mesh.get_group("data")))
+    g_bound = 2 * g_in.numel() * 4 / HBM_BYTES_PER_S * 1e3
+    print(f"mesh FilterService: a 1-rank process group (FileStore, "
+          f"timeout {MESH_TIMEOUT_S:.0f} s), make_mesh((1,), ('data',)) over "
+          f"phase 7's {len(built)} filters as built ({msvc.bank.nbytes / 1e6:.1f}"
+          f" MB): member, probes and stats == phase 7's one-device service on "
+          f"all {n} queries ({share} keys a rank after padding) | launches "
+          f"{launches}, by path {paths} (the rule at {share} keys) | probe "
+          f"host ms, median of {MESH_REPEATS} after a warm call, in turns: "
+          f"one device {one_ms[0]:.1f}, mesh {mesh_ms[0]:.1f}, mesh "
+          f"{mesh_ms[1]:.1f}, one device {one_ms[1]:.1f} | one mesh probe "
+          f"profiled: {busy(device_totals(rows), mesh_ms[0])}; its all-gather "
+          + (gather if isinstance(gather, str) else
+             f"{gather[0]:.3f} ms of device time in {gather[1]} operations")
+          + f" | the all-gather alone ({2 * len(built)} x {share} int32, "
+          f"{8 * len(built) * share / 1e6:.1f} MB; CUDA events, median of "
+          f"windows): {g_ms:.4f} ms, bound {g_bound:.4f} ms (read and written "
+          f"once at 3.35 TB/s) | {card}", flush=True)
+    return launches, paths
+
+
+def census_cell(host_mesh, train_arg_bytes: dict, *, card: str = "") -> None:
+    """The dry-run census on meta tensors at 16x16, 2x16x16 and
+    ``host_mesh``: no device memory allocated, each cell's per-device
+    argument GB beside the card's memory, and the (1, 1) LM_ARCH
+    ``train_4k`` params and AdamW state equal to ``train_arg_bytes``,
+    what phase 11 allocated."""
+    import torch
+    from repro_torch.launch.mesh import make_production_mesh
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    cells = census_rows(dict(zip(CENSUS_MESHES, (
+        make_production_mesh(), make_production_mesh(multi_pod=True),
+        host_mesh))))
+    census_s = time.perf_counter() - t
+    check(torch.cuda.max_memory_allocated() == held,
+          f"the census allocated device memory: peak "
+          f"{torch.cuda.max_memory_allocated()} B over {held} B held")
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    for line in census_lines(cells, total_mem):
+        print(line, flush=True)
+    host_train = cells[(LM_ARCH, "train_4k")]["host_1x1"]
+    got = {k: host_train["memory_model"]["args"][k] for k in ("params", "opt")}
+    check(got == train_arg_bytes,
+          f"census {LM_ARCH} train_4k on (1, 1): {got} B, phase 11 "
+          f"allocated {train_arg_bytes} B")
+    n_fit = {name: sum(sum(r[name]["memory_model"]["args"].values())
+                       <= total_mem for r in cells.values())
+             for name in CENSUS_MESHES}
+    print(f"census: {len(cells)} (arch, shape) cells x {len(CENSUS_MESHES)} "
+          f"meshes in {census_s:.1f} s on meta tensors (peak device memory "
+          f"over the census == the {held} B held before it); arguments that "
+          f"fit one card of {total_mem / 1e9:.1f} GB: {n_fit} | {LM_ARCH} "
+          f"train_4k on (1, 1): params {got['params']} B and AdamW state "
+          f"{got['opt']} B == phase 11's allocation | {card}", flush=True)
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1234,29 +1525,6 @@ def main() -> None:
             layers, n_keys, words.numel(), words.data_ptr()) is None
             for layers in layer_sets)
         return {"onchip": onchip, "gather": len(layer_sets) - onchip}
-
-    def cuda_ms(fn, windows: int = TIME_WINDOWS) -> tuple[float, list]:
-        """Median ms per call over ``windows`` CUDA-event windows, each of
-        enough warm calls to cover WINDOW_MS; also every window's ms."""
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        est_ms = (time.perf_counter() - t0) * 1e3 / 3
-        iters = max(3, math.ceil(WINDOW_MS / est_ms))
-        per = []
-        for _ in range(windows):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(iters):
-                fn()
-            end.record()
-            torch.cuda.synchronize()
-            per.append(start.elapsed_time(end) / iters)
-        return statistics.median(per), per
 
     def graph_ms(fn, calls: int = 20) -> tuple[float, list]:
         """Device ms per call: ``calls`` calls captured in one CUDA graph,
@@ -1516,13 +1784,17 @@ def main() -> None:
                   *(() if flc.xor is None else ((flc.xor, flc.xor.alpha),)),
                   (flc.exact, 1))}
     f_plans = {k: bloomier_onchip.plan(g) for k, g in f_geos.items()}
-    filter_rule = {
-        "bloom_probe": rule_paths([((flay0.m_bits, flay0.k, flay0.seed,
-                                     flay0.offset),)], F_QUERIES,
-                                  fstate.tables),
-        "cascade_probe": rule_paths([flay4.probe_params()], F_QUERIES,
-                                    fstate.tables),
-        **{k: bloomier_rule(g, F_QUERIES) for k, g in f_geos.items()}}
+
+    def bank_rule(n_keys: int, words) -> dict:
+        """The paths the filters bank's probe of ``n_keys`` keys over the
+        bank ``words`` takes, by each kernel's ``onchip_reason``."""
+        return {
+            "bloom_probe": rule_paths([((flay0.m_bits, flay0.k, flay0.seed,
+                                         flay0.offset),)], n_keys, words),
+            "cascade_probe": rule_paths([flay4.probe_params()], n_keys,
+                                        words),
+            **{k: bloomier_rule(g, n_keys) for k, g in f_geos.items()}}
+    filter_rule = bank_rule(F_QUERIES, fstate.tables)
     check(filter_paths == filter_rule,
           f"the filters bank probe took paths {filter_paths}, the rule says "
           f"{filter_rule}")
@@ -2230,34 +2502,6 @@ def main() -> None:
           f"{time.monotonic() - t_start:.0f} s", flush=True)
 
     # -- 9. query: the query layer and the prefix cache --------------------
-    def device_rows(fn):
-        """(device µs, count, name) of each device operation (kernels and
-        copies: the profiler's device-side events) in one call of ``fn``,
-        or why not measured. The CPU ops that launch them report the same
-        time as their own and are not counted again."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-        fn()
-        torch.cuda.synchronize()
-        try:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
-            rows = [(e.self_device_time_total, e.count, e.key)
-                    for e in prof.key_averages()
-                    if e.device_type != DeviceType.CPU
-                    and e.self_device_time_total > 0]
-        except Exception as exc:          # the profiler is optional here
-            return f"not measured ({exc})"
-        return rows or "not measured (no device-side events)"
-
-    def device_totals(rows):
-        """(device ms, device operations) of ``device_rows``' rows."""
-        if isinstance(rows, str):
-            return rows
-        return sum(us for us, _, _ in rows) / 1e3, sum(c for _, c, _ in rows)
-
     def device_profile(fn):
         return device_totals(device_rows(fn))
 
@@ -2267,16 +2511,6 @@ def main() -> None:
             return rows
         return "; ".join(f"{name[:48]} {us / 1e3:.3f} ms x{n}"
                          for us, n, name in sorted(rows, reverse=True)[:k])
-
-    def busy(prof, call_ms: float) -> str:
-        """The device's share of a call of ``call_ms`` host ms (timed
-        without the profiler)."""
-        if isinstance(prof, str):
-            return prof
-        dev_ms, ops = prof
-        return (f"{dev_ms:.3f} ms of device time in {ops} device "
-                f"operations (kernels and copies), device busy "
-                f"{100 * dev_ms / call_ms:.1f}% of a {call_ms:.1f} ms call")
 
     def lsm_launches() -> dict:
         return {"lsm_probe": lsm_probe.launches, **path_counts()}
@@ -2631,6 +2865,11 @@ def main() -> None:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     model, state = run["model"], run["state"]
     cfg = model.cfg
+    # what the params and AdamW state hold on the card (phase 14's census
+    # of this cell on a (1, 1) mesh must count the same bytes)
+    train_arg_bytes = {k: sum(a.numel() * a.element_size()
+                              for a in MC.tree_leaves(state[k]))
+                       for k in ("params", "opt")}
     n_params = sum(a.numel() for a in MC.tree_leaves(state["params"]))
     tokens = TRAIN_SEQ * TRAIN_BATCH
     step_ms = statistics.median(run["ms"][1:])
@@ -3122,12 +3361,30 @@ def main() -> None:
     print(f"ssm phase: {time.monotonic() - t13:.0f} s | {card} | total "
           f"{time.monotonic() - t_start:.0f} s", flush=True)
 
+    # -- 14. the row split over a DeviceMesh and the dry-run census ---------
+    t14 = time.monotonic()
+    launches14, paths14 = mesh_phase(
+        fstate.bank, queries, (f_member, f_probes, fstats), train_arg_bytes,
+        types.SimpleNamespace(
+            reset=reset_counts,
+            launches=lambda: {k: kernels[k].launches for k in bank_kernels},
+            paths=lambda: {k: bloom_paths(kernels[k]) for k in
+                           ("bloom_probe", "cascade_probe") + bloomier_kernels},
+            rule=bank_rule),
+        device=dev, card=card)
+    for k in bank_kernels:
+        q9[k] = q9.get(k, 0) + launches14[k]
+    print(f"mesh phase: {time.monotonic() - t14:.0f} s | {card} | total "
+          f"{time.monotonic() - t_start:.0f} s", flush=True)
+
     q9["bloom_probe"] += sum(l["bloom_probe"] for l in pc10 + pc12 + pc13)
     q9["bloom_gather"] += sum(l["gather"] for l in pc10 + pc12 + pc13)
     for r in records:
         r["launches"] += q9.get(r["name"], 0)
         if r["name"] == "bloom_probe":
             r["gather_launches"] += q9["bloom_gather"]
+        for path, c in paths14.get(r["name"], {}).items():
+            r[f"{path}_launches"] += c
 
     print(json.dumps({"kernels": records}))
     print(card)

@@ -1,1 +1,20 @@
-"""Command-line entry points of the port (``python -m repro_torch.launch.<name>``)."""
+"""Command-line entry points of the port (``python -m repro_torch.launch.<name>``):
+``serve``, ``train`` and ``dryrun`` (the census of every (arch, shape)
+cell on the production meshes, on ``meta`` tensors), with ``steps``
+(the step builders) and ``mesh`` (process groups and meshes).
+
+Not ported, by decision:
+
+- ``hlo_tools`` and ``hbm_model`` parse XLA's HLO text (collectives, the
+  largest buffers, a liveness peak). Torch emits no HLO, so they have
+  nothing to read.
+- ``calibrate`` corrects XLA's ``cost_analysis`` of scanned layer loops
+  (it counts a scan body once). The port never scans layers and has no
+  ``cost_analysis``; ``chip_smoke.py`` reads device times with
+  ``torch.profiler`` and memory with the allocator's counters instead.
+- ``perf_iter`` compiles one cell under a variant of the sharding rules
+  and reads XLA's analyses; without XLA it has nothing to compile.
+- ``sharding/ctx.py``: ``shard_activation`` is an identity unless a GSPMD
+  step runs inside ``activation_sharding_ctx``. It belongs to the LM
+  steps run sharded over a mesh, which are not ported yet (ROADMAP.md).
+"""

@@ -1,0 +1,151 @@
+"""Dry-run census: every (arch x input-shape) cell on the production
+meshes, on ``meta`` tensors, with what each device would hold.
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun            # all cells
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-14b \\
+        --shape train_4k --mesh both --out artifacts/dryrun
+
+Writes one JSON per (arch, shape, mesh) cell under --out, with the
+reference's field names: ``memory_model`` (``args``: per-device bytes of
+each argument group under the sharding rules; ``grads_est``;
+``remat_stash_est``), ``params_total``, ``params_active``,
+``model_flops`` (6·N_active·tokens to train, 2·N_active·batch to serve)
+and ``n_devices``. Every tensor is a ``meta`` tensor: nothing is
+allocated, and no device is needed.
+
+The reference's dry-run also compiles each cell with XLA and records
+what the compiler reports (``memory``, ``cost``, ``collectives``,
+``liveness_peak``, ``transient_top4``, ``hlo_ops``, ``lower_s``,
+``compile_s``); torch emits no HLO, so the census leaves those out.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import traceback
+
+from repro_torch.configs import REGISTRY, applicable_shapes
+from repro_torch.configs.base import SHAPES
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.steps import build_cell
+from repro_torch.sharding.rules import (DEFAULT_RULES, SP_RULES, local_shape,
+                                        mesh_sizes, partition_spec)
+
+
+def cell_rules(arch_id: str, shape_name: str, mesh):
+    """The reference's production rules for a cell: Megatron-SP
+    sequence-sharded layer boundaries to train (a 16x smaller remat
+    stash); the plain rules to serve, except that a decode whose kv_heads
+    do not divide the ``model`` axis shards attention over head_dim
+    (a partial-score all-reduce instead of per-layer KV-cache gathers)."""
+    kind = SHAPES[shape_name].kind
+    if kind == "train":
+        return SP_RULES
+    if kind == "decode":
+        cfg = getattr(REGISTRY[arch_id].model(smoke=False), "cfg", None)
+        lm = getattr(cfg, "lm", cfg)
+        kvh = getattr(lm, "n_kv_heads", 0)
+        if kvh and kvh % mesh_sizes(mesh).get("model", 1) != 0:
+            return DEFAULT_RULES.override(heads=None, head_dim="model")
+    return DEFAULT_RULES
+
+
+def run_cell(arch_id: str, shape_name: str, mesh, mesh_name: str,
+             rules=None, verbose: bool = True) -> dict:
+    """The census of one cell on ``mesh`` (a ``MeshShape``, a
+    ``DeviceMesh`` or anything the sharding rules can read)."""
+    arch = REGISTRY[arch_id]
+    if rules is None:
+        rules = cell_rules(arch_id, shape_name, mesh)
+    cell = build_cell(arch, shape_name, device="meta", mesh=mesh,
+                      rules=rules, smoke=False)
+    args_local = cell.arg_local_bytes()
+    s = SHAPES[shape_name]
+    stash = 0
+    if cell.kind == "train":
+        # the bf16 layer-boundary activations remat saves, one per layer
+        # (the port never scans layers)
+        cfg = getattr(cell.model, "cfg", None)
+        lmcfg = getattr(cfg, "lm", cfg)
+        n_saves = getattr(lmcfg, "n_layers", 0)
+        if arch.family == "audio":
+            n_saves *= 2
+        shape = (s.batch, s.seq, getattr(lmcfg, "d_model", 0))
+        spec = partition_spec(mesh, rules, ("batch", "seq_save", None), shape)
+        b, t, d = local_shape(mesh, spec, shape)
+        stash = n_saves * b * t * d * 2
+    grads = args_local.get("params", 0) if cell.kind == "train" else 0
+    n_total = cell.model.param_count()
+    n_active = cell.model.active_param_count()
+    tokens = s.batch * s.seq if cell.kind == "train" else s.batch
+    model_flops = (6 if cell.kind == "train" else 2) * n_active * tokens
+    rec = {
+        "arch": arch_id, "shape": shape_name, "mesh": mesh_name,
+        "kind": cell.kind,
+        "n_devices": math.prod(mesh_sizes(mesh).values()),
+        "memory_model": {"args": args_local, "grads_est": int(grads),
+                         "remat_stash_est": int(stash)},
+        "params_total": int(n_total), "params_active": int(n_active),
+        "model_flops": float(model_flops),
+    }
+    if verbose:
+        per_dev = sum(args_local.values()) + grads + stash
+        print(f"[dryrun] {arch_id:26s} {shape_name:12s} {mesh_name:18s} "
+              f"args/dev={sum(args_local.values()) / 2**30:8.2f}GiB "
+              f"+grads+stash={per_dev / 2**30:8.2f}GiB "
+              f"flops={model_flops:.3e}", flush=True)
+    return rec
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="all")
+    ap.add_argument("--shape", default="all")
+    ap.add_argument("--mesh", default="both",
+                    choices=["single", "multi", "both"])
+    ap.add_argument("--out", default="artifacts/dryrun")
+    ap.add_argument("--no-sp", action="store_true",
+                    help="disable sequence-parallel layer boundaries for train")
+    ap.add_argument("--skip-existing", action="store_true")
+    args = ap.parse_args(argv)
+
+    os.makedirs(args.out, exist_ok=True)
+    archs = sorted(REGISTRY) if args.arch == "all" else [args.arch]
+    meshes = []
+    if args.mesh in ("single", "both"):
+        meshes.append(("single_pod_16x16",
+                       make_production_mesh(multi_pod=False)))
+    if args.mesh in ("multi", "both"):
+        meshes.append(("multi_pod_2x16x16",
+                       make_production_mesh(multi_pod=True)))
+    rules = DEFAULT_RULES if args.no_sp else None
+
+    failures = []
+    for mesh_name, mesh in meshes:
+        for aid in archs:
+            shapes = (applicable_shapes(REGISTRY[aid]) if args.shape == "all"
+                      else [args.shape])
+            for sn in shapes:
+                fn = os.path.join(args.out, f"{aid}__{sn}__{mesh_name}.json")
+                if args.skip_existing and os.path.exists(fn):
+                    continue
+                try:
+                    rec = run_cell(aid, sn, mesh, mesh_name, rules=rules)
+                except Exception as e:  # noqa: BLE001 — report every cell
+                    traceback.print_exc()
+                    failures.append((aid, sn, mesh_name, repr(e)))
+                    continue
+                with open(fn, "w") as f:
+                    json.dump(rec, f, indent=1)
+    if failures:
+        print("\nDRY-RUN FAILURES (sharding bugs):")
+        for f in failures:
+            print("  ", f)
+        raise SystemExit(1)
+    print("\nall dry-run cells counted OK")
+
+
+if __name__ == "__main__":
+    main()

@@ -13,7 +13,8 @@ Conventions, as in the reference (``repro/models/common.py``):
   steps may hand in weights already in the compute dtype — the numbers are
   the same, since the cast is).
 - The reference's ``shard_activation`` calls are no-ops without a mesh;
-  the port has no ``sharding/`` yet and leaves them out.
+  the port's ``sharding/`` has the rules but no activation context yet,
+  so the models leave those calls out.
 
 - Training differentiates these functions with torch autograd. Two
   carry a hand-written backward that keeps the reference's dtypes: the
@@ -48,12 +49,15 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
-def tree_leaves(tree) -> list:
-    """The leaves of a tree of dicts, lists and tuples, in order."""
+def tree_leaves(tree, is_leaf=None) -> list:
+    """The leaves of a tree of dicts, lists and tuples, in order; a node
+    for which ``is_leaf`` is true is a leaf."""
+    if is_leaf is not None and is_leaf(tree):
+        return [tree]
     if isinstance(tree, dict):
         tree = list(tree.values())
     if isinstance(tree, (list, tuple)):
-        return [leaf for v in tree for leaf in tree_leaves(v)]
+        return [leaf for v in tree for leaf in tree_leaves(v, is_leaf)]
     return [tree]
 
 

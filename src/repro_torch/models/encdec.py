@@ -244,6 +244,13 @@ class EncDecLM:
                                       dtype=C.COMPUTE_DTYPE, device="meta"),
                 "len": torch.empty((), dtype=torch.int32, device="meta")}
 
+    def cache_axes(self):
+        """The logical axes of each ``cache_specs`` leaf."""
+        layer = {"k": ("batch", "seq_kv", "kv_heads", "kv_cache_head_dim"),
+                 "v": ("batch", "seq_kv", "kv_heads", "kv_cache_head_dim")}
+        return {"layers": [layer for _ in range(self.cfg.n_layers)],
+                "memory": ("batch", "frames", None), "len": ()}
+
     def param_count(self):
         return self.cfg.param_count()
 

@@ -289,6 +289,12 @@ class RWKV6LM:
         return {"layers": self.init_caches(B, device="meta"),
                 "len": torch.empty((), dtype=torch.int32, device="meta")}
 
+    def cache_axes(self):
+        """The logical axes of each ``cache_specs`` leaf (layers unrolled)."""
+        layer = {"xt": ("batch", None), "xc": ("batch", None),
+                 "s": ("batch", "heads", None, None)}
+        return {"layers": [layer for _ in range(self.cfg.n_layers)], "len": ()}
+
     def param_count(self):
         return self.cfg.param_count()
 

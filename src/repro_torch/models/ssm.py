@@ -383,6 +383,16 @@ class Zamba2LM:
         return {"layers": self.empty_caches(B, S, device="meta"),
                 "len": torch.empty((), dtype=torch.int32, device="meta")}
 
+    def cache_axes(self):
+        """The logical axes of each ``cache_specs`` leaf (layers unrolled)."""
+        one_m = {"conv": ("batch", None, "ssm_inner"),
+                 "s": ("batch", "heads", None, None)}
+        one_a = {"k": ("batch", "seq_kv", "kv_heads", "kv_cache_head_dim"),
+                 "v": ("batch", "seq_kv", "kv_heads", "kv_cache_head_dim")}
+        mam = [dict(one_m) for _ in range(self.cfg.n_layers)]
+        attn = [dict(one_a) for _ in self._shared_points()]
+        return {"layers": {"mamba": mam, "attn": attn}, "len": ()}
+
     def param_count(self):
         return self.cfg.param_count()
 

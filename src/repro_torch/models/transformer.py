@@ -390,6 +390,16 @@ class TransformerLM:
         return {"layers": self.empty_caches(B, S, device="meta"),
                 "len": torch.empty((), dtype=torch.int32, device="meta")}
 
+    def cache_axes(self):
+        """The logical axes of each ``cache_specs`` leaf (layers unrolled)."""
+        if self.cfg.mla:
+            layer = {"ckv": ("batch", "seq_kv", "kv_cache_lora"),
+                     "krope": ("batch", "seq_kv", None)}
+        else:
+            layer = {"k": ("batch", "seq_kv", "kv_heads", "kv_cache_head_dim"),
+                     "v": ("batch", "seq_kv", "kv_heads", "kv_cache_head_dim")}
+        return {"layers": [layer for _ in range(self.cfg.n_layers)], "len": ()}
+
     # ----------------------------------------------------------- counting
     def param_count(self):
         return self.cfg.param_count()

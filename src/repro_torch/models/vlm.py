@@ -89,6 +89,9 @@ class VLM:
         """S = the whole cache length (visual prefix + text)."""
         return self.lm.cache_specs(B, S)
 
+    def cache_axes(self):
+        return self.lm.cache_axes()
+
     def param_count(self):
         return self.cfg.param_count()
 

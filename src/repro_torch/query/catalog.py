@@ -51,14 +51,15 @@ class TagIndex:
     One ``Othello`` plane per tag bit, all planes packed into one
     ``FilterBank`` and published through a ``FilterService`` on ``device``
     (the card by default; ``"cpu"`` serves the planes with the plain torch
-    ops). The index keeps ``{gen_id: BankState | None}``: ``None`` marks an
+    ops), its rows split over the ``data`` ranks of ``mesh`` where one is
+    given. The index keeps ``{gen_id: BankState | None}``: ``None`` marks an
     empty generation (nothing enrolled — every generation-resident probe is
     vacuously False), a ``BankState`` is the immutable bank version that
     serves that generation. States for generations that are neither
     current nor pinned are pruned at each enrollment."""
 
     def __init__(self, name: str, tag_fn, *, tag_bits: int = 4,
-                 seed: int = 0, device="cuda"):
+                 seed: int = 0, device="cuda", mesh=None):
         if not (1 <= tag_bits <= 16):
             raise ValueError("tag_bits must be in [1, 16]")
         self.name = name
@@ -66,6 +67,7 @@ class TagIndex:
         self.tag_bits = int(tag_bits)
         self.seed = int(seed)
         self.device = as_device(device)
+        self.mesh = mesh
         self.service: FilterService | None = None
         self.enrollments = 0
         self._states: dict[int, BankState | None] = {}
@@ -102,7 +104,8 @@ class TagIndex:
                 for j in range(self.tag_bits)
             ]
             if self.service is None:
-                self.service = FilterService(planes, device=self.device)
+                self.service = FilterService(planes, device=self.device,
+                                             mesh=self.mesh)
                 if self._registry is not None:
                     self._registry.register(self._qualname, self.service)
             else:
@@ -159,7 +162,8 @@ class Collection:
             raise ValueError(f"index {name!r} already exists on "
                              f"collection {self.name!r}")
         idx = TagIndex(name, tag_fn, tag_bits=tag_bits,
-                       seed=seed, device=self.store.device)
+                       seed=seed, device=self.store.device,
+                       mesh=self.store.mesh)
         if self._registry is not None:
             idx._registry = self._registry
             idx._qualname = f"{self.name}/{name}"

@@ -25,9 +25,13 @@ Paper mapping
   Bloomier kernels' on-chip path reads, are built once per published
   ``BankState`` from its contents, not per probe.
 
-The service runs on one device. The JAX package splits key rows across
-devices with ``shard_map``; a multi-GPU row split is still to be ported
-(ROADMAP).
+Scale-out: with a ``mesh`` (a ``DeviceMesh`` with a ``data`` dim), key
+rows are split across the ranks of its ``data`` group, as the JAX
+package's ``shard_map`` over a 1-D ``data`` mesh splits them. The packed
+table buffer is replicated on every rank (filters are small by
+construction, §4); each rank probes its contiguous share of the padded
+rows (``row_share``), and the member and probes rows are all-gathered, so
+every rank returns the whole batch and keeps the one-device stats.
 """
 from __future__ import annotations
 
@@ -213,6 +217,16 @@ def bank_probe(tables, hi, lo, *, layouts: tuple, descs: tuple,
     return torch.stack(members), torch.stack(probes)
 
 
+def row_share(n: int, world: int) -> int:
+    """Keys each of ``world`` ranks probes for a batch of ``n``: n padded
+    to a multiple of BLOCK_ROWS x BLOCK_COLS x world (the JAX package's
+    (8, 128) key blocks, then whole row groups per device), split evenly.
+    Rank r probes padded keys [r * share, (r + 1) * share); the padding
+    keys are 0 and their rows are dropped after the gather."""
+    multiple = common.BLOCK * world
+    return -(-n // multiple) * multiple // world
+
+
 # ---------------------------------------------------------------------------
 # FilterService — batched query streams, double-buffered
 # ---------------------------------------------------------------------------
@@ -254,16 +268,30 @@ class ServiceStats:
 class FilterService:
     """Serve batched membership queries against a packed FilterBank on one
     device (``"cuda"`` by default; ``"cpu"`` runs the kernels' plain
-    versions).
+    versions), or split across the ``data`` ranks of ``mesh``.
 
     ``probe(keys)`` evaluates every filter in the bank on the whole key
-    batch. The service is **double-buffered**: the complete read state
-    (packed buffer + layouts + device tensor) lives in one immutable
-    ``BankState``, and ``rebuild`` = ``prepare`` (build the new bank while
-    the old state stays probe-able) + ``publish`` (ONE reference swap)."""
+    batch. With a mesh, ``probe`` and ``probe_filter`` are collectives:
+    every rank of the ``data`` group calls them with the same keys, probes
+    its share of the rows, and gets the whole result. The service is
+    **double-buffered**: the complete read state (packed buffer + layouts
+    + device tensor) lives in one immutable ``BankState``, and ``rebuild``
+    = ``prepare`` (build the new bank while the old state stays
+    probe-able) + ``publish`` (ONE reference swap)."""
 
-    def __init__(self, filters: list, *, device="cuda"):
+    def __init__(self, filters: list, *, device="cuda", mesh=None):
         self.device = common.as_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            if mesh.device_type != self.device.type:
+                raise ValueError(f"a {mesh.device_type} mesh cannot serve "
+                                 f"a bank on {self.device}")
+            if "data" not in (mesh.mesh_dim_names or ()):
+                raise ValueError("the mesh has no 'data' dim to split rows "
+                                 "over")
+            self._group = mesh.get_group("data")
+            self._world = mesh.size(mesh.mesh_dim_names.index("data"))
+            self._rank = mesh.get_local_rank("data")
         # guards the (state, stats) PAIR: publishes swap both, and a probe
         # must attribute its counts to the version it actually probed even
         # when a background rebuild lands mid-call (always-on store)
@@ -293,8 +321,9 @@ class FilterService:
         kernel library the bank's layouts can route to (``layout_sources``)
         is built and loaded here, so the first probe after ``publish``
         pays no ``nvcc`` stall, whatever path its batch takes; on the CPU
-        there is nothing to build. Nothing is visible to readers until
-        ``publish``."""
+        there is nothing to build. With a mesh, each rank builds what its
+        share of any batch can route to. Nothing is visible to readers
+        until ``publish``."""
         bank = FilterBank.pack(filters)
         bank.tables.setflags(write=False)      # immutable once staged
         tables = common.to_device(bank.tables, self.device)
@@ -318,6 +347,25 @@ class FilterService:
             self.stats = stats
 
     # -- batched probing -----------------------------------------------------
+    def _gathered(self, keys: np.ndarray, probe) -> np.ndarray:
+        """The mesh path: ``probe(hi, lo)`` -> int32 [R, share] over this
+        rank's share of the padded key rows, all-gathered over the mesh's
+        ``data`` group (int32: NCCL has no bool) -> int32 [R, n]."""
+        import torch.distributed as dist
+        keys = np.asarray(keys, dtype=np.uint64)
+        n, world = len(keys), self._world
+        share = row_share(n, world)
+        mine = np.zeros(share, np.uint64)
+        part = keys[self._rank * share:(self._rank + 1) * share]
+        mine[:len(part)] = part
+        local = probe(*common.key_lanes(mine, self.device))
+        out = torch.empty(world * local.numel(), dtype=torch.int32,
+                          device=self.device)
+        dist.all_gather_into_tensor(out, local.reshape(-1), group=self._group)
+        rows = (out.reshape((world,) + local.shape).transpose(0, 1)
+                .reshape(local.shape[0], world * share)[:, :n])
+        return rows.cpu().numpy()
+
     def probe(self, keys: np.ndarray, state: BankState | None = None
               ) -> tuple[np.ndarray, np.ndarray]:
         """-> (member bool [F, n], probes int32 [F, n]) for n keys across
@@ -334,12 +382,19 @@ class FilterService:
         if n == 0:
             shape = (state.n_filters, 0)
             return np.zeros(shape, bool), np.zeros(shape, np.int32)
-        hi, lo = common.key_lanes(keys, self.device)
-        member, probes = bank_probe(state.tables, hi, lo,
-                                    layouts=state.bank.layouts,
-                                    descs=state.descs, planes=state.planes)
-        member = member.cpu().numpy().astype(bool)
-        probes = probes.cpu().numpy()
+        if self.mesh is None:
+            hi, lo = common.key_lanes(keys, self.device)
+            member, probes = bank_probe(state.tables, hi, lo,
+                                        layouts=state.bank.layouts,
+                                        descs=state.descs, planes=state.planes)
+            member = member.cpu().numpy().astype(bool)
+            probes = probes.cpu().numpy()
+        else:
+            rows = self._gathered(keys, lambda hi, lo: torch.cat(bank_probe(
+                state.tables, hi, lo, layouts=state.bank.layouts,
+                descs=state.descs, planes=state.planes)))
+            member, probes = np.split(rows, 2)
+            member = member.astype(bool)
         if current:
             with self._swap_lock:
                 cur_stats.lookups += n
@@ -353,10 +408,15 @@ class FilterService:
         if len(keys) == 0:
             return np.zeros(0, bool)
         state = self._state
-        hi, lo = common.key_lanes(keys, self.device)
-        member, _ = _probe_one(state.tables, hi, lo, state.bank.layouts[index],
-                               state.descs[index], state.planes[index])
-        return member.cpu().numpy().astype(bool)
+        args = (state.bank.layouts[index], state.descs[index],
+                state.planes[index])
+        if self.mesh is None:
+            hi, lo = common.key_lanes(keys, self.device)
+            member, _ = _probe_one(state.tables, hi, lo, *args)
+            return member.cpu().numpy().astype(bool)
+        rows = self._gathered(keys, lambda hi, lo: _probe_one(
+            state.tables, hi, lo, *args)[0][None])
+        return rows[0].astype(bool)
 
     def refresh_tables(self, filters: list) -> None:
         """Re-pack mutated filter contents into a NEW published state. Valid

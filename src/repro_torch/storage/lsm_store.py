@@ -198,7 +198,12 @@ class StoreStats:
 class LsmStore:
     """Point-query LSM store: memtable + newest-first immutable SSTables,
     batched filter-guarded reads through one fused kernel launch against
-    generation-tagged immutable banks."""
+    generation-tagged immutable banks.
+
+    ``mesh`` is handed to the store's ``FilterService``, whose bank probes
+    (``service.probe``) it splits by rows; ``get_batch``'s fused
+    ``lsm_probe`` runs over the whole batch on every rank, as in the JAX
+    package."""
 
     filter_kind: str = "chained"
     memtable_capacity: int = 4096
@@ -211,6 +216,7 @@ class LsmStore:
     table_cap: int = MAX_TABLES       # admission control: stall/fail at this
     stall_timeout_s: float = 5.0      # bounded admission wait before WriteStall
     device: object = "cuda"           # bank + probes; "cpu" = plain versions
+    mesh: object = None               # service.probe's row split (DeviceMesh)
 
     sstables: list = field(default_factory=list, repr=False)   # newest first
     filters: list = field(default_factory=list, repr=False)    # parallel
@@ -718,7 +724,8 @@ class LsmStore:
             if len(live) != len(tables_bs):
                 raise RuntimeError("mixed filtered/filterless tables unsupported")
             if self.service is None:
-                self.service = FilterService(live, device=self.device)
+                self.service = FilterService(live, device=self.device,
+                                             mesh=self.mesh)
             elif len(live) != self.service.bank.n_filters:
                 # filter added/removed: layouts certainly changed — skip the
                 # refresh_tables attempt (it would pack the whole bank once

@@ -700,3 +700,33 @@ def test_ssm_rwkv_encdec_smoke_card_matches_cpu(cuda, arch_id):
         assert np.abs(a - b).max() <= cs.CARD_CPU_REL * np.abs(b).max()
     assert abs(loss_card - loss_cpu) <= 1e-5 * abs(loss_cpu)
     assert max(cs.rel_l2(a, b) for a, b in zip(g_card, g_cpu)) <= 1e-4
+
+
+def test_mesh_filter_service_on_card_matches_one_device(cuda, tmp_path):
+    """A 1-rank NCCL group: ``FilterService(mesh=)`` over the mesh
+    service bank of ``tests/_torch_ranks.py`` returns the one-device
+    service's rows and stats, launching each bank kernel once a probe."""
+    import torch.distributed as dist
+    from _torch_ranks import N_QUERIES, bank_case
+    from repro_torch.launch.mesh import make_mesh, start_group
+    filters, q = bank_case()
+    one = FilterService(filters, device=cuda)
+    start_group(str(tmp_path), 0, 1, device="cuda", timeout_s=60.0)
+    try:
+        svc = FilterService(filters, device=cuda,
+                            mesh=make_mesh((1,), ("data",)))
+        before = {k: f.launches for k, f in KERNELS.items()}
+        for n in (N_QUERIES, 0):
+            for g, w in zip(svc.probe(q[:n]), one.probe(q[:n])):
+                np.testing.assert_array_equal(g, w)
+        assert {k: f.launches - before[k] for k, f in KERNELS.items()} == {
+            **{k: 0 for k in KERNELS}, **{k: 2 for k in (
+                "bloom_probe", "xor_probe", "exact_probe", "chained_probe",
+                "cascade_probe")}}
+        for i in range(len(filters)):
+            np.testing.assert_array_equal(svc.probe_filter(i, q),
+                                          one.probe_filter(i, q))
+        assert svc.stats.as_dict() == one.stats.as_dict()
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()

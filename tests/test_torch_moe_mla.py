@@ -244,6 +244,34 @@ def test_moe_capacity_refuses_uneven_groups():
     assert C.moe_capacity(8192, 2, 8, group_size=2048) == (4, 2048, 640)
 
 
+def test_moe_block_refuses_what_the_reference_refuses():
+    """At the default group size a batch of T >= 8,192 tokens splits into
+    G = T // 4096 groups: 8,193 tokens do not split, and both packages
+    refuse them (the port with a ValueError, the reference's reshape with
+    a TypeError); 8,192 tokens run and agree. A capacity factor of 0.1
+    keeps the reference's one-hot tensors small (an expert keeps 205 of a
+    group's pairs in both)."""
+    rng = np.random.default_rng(3)
+    D, F, E = 8, 8, 4
+    p = {"router": rng.normal(size=(D, E)), "wi_gate": rng.normal(size=(E, D, F)),
+         "wi_up": rng.normal(size=(E, D, F)), "wo": rng.normal(size=(E, F, D))}
+    p = {k: (v / np.sqrt(v.shape[-2])).astype(np.float32) for k, v in p.items()}
+    kw = dict(n_experts=E, top_k=2, capacity_factor=0.1)
+    x = rng.normal(size=(1, 8193, D)).astype(np.float32)
+    with pytest.raises(ValueError, match="groups of equal size"):
+        C.moe_block(torch.from_numpy(x), {k: torch.from_numpy(v)
+                                          for k, v in p.items()}, **kw)
+    jp = {k: jnp.asarray(v) for k, v in p.items()}
+    with pytest.raises(TypeError):
+        JC.moe_block(jnp.asarray(x), jp, **kw)
+    x = x[:, :8192]
+    want = jax.jit(functools.partial(JC.moe_block, **kw))(jnp.asarray(x), jp)
+    got = C.moe_block(torch.from_numpy(x), {k: torch.from_numpy(v)
+                                            for k, v in p.items()}, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+
+
 # ---------------------------------------------------------------------------
 # MoE and MLA in TransformerLM
 # ---------------------------------------------------------------------------
