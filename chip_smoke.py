@@ -186,6 +186,20 @@ Phases, one line each; any failure exits non-zero and prints no result:
              per-device argument GB and whether they fit the card, and
              the (1, 1) llama3.2-1b ``train_4k`` params and AdamW bytes
              equal to what phase 11 allocated
+15. sharded  the LM steps run sharded over the card's (1, 1)
+             ``DeviceMesh`` (``build_cell(mesh=)``, ``make_*_step(mesh=)``),
+             in phase 14's process group: llama3.2-1b FULL, a train step
+             at seq 4,096 x batch 2 from the trainer's fresh state (bf16
+             compute over f32 master weights, deterministic algorithms),
+             a 64-token prefill into a 256-token cache and 16 decode
+             steps; deepseek-v2-lite-16b at FULL widths cut to 2 layers,
+             a train step at batch 2 x seq 64, a 16-token prefill and 8
+             decode steps: the loss, every param and AdamW leaf, the
+             logits and the cache equal to the one-device steps' bit for
+             bit; the placed bytes == ``Cell.arg_local_bytes`` == the
+             census's (1, 1) row; host ms of a train step and a decode
+             token on the mesh and on one device in turns; one decode
+             step's device operations on each; no kernel launched
 
 Then one JSON line of kernel records, the card line and the result line.
 Launch counts are set to 0 just before each path is driven and read just
@@ -1295,11 +1309,13 @@ def census_lines(cells: dict, device_bytes: int) -> list[str]:
 
 
 def mesh_phase(bank, queries, want, train_arg_bytes: dict, counters, *,
-               device="cuda", card: str = "") -> tuple[dict, dict]:
+               device="cuda", card: str = "", then=None) -> tuple[dict, dict]:
     """Phase 14 in a 1-rank process group (NCCL on the card, gloo on the
     CPU; any failure to start it fails the run): ``mesh_probe_cell`` over
     the filters of ``bank`` on a (1,) 'data' mesh, then ``census_cell`` with
-    the (1, 1) host mesh. -> the mesh probe's (launches, paths)."""
+    the (1, 1) host mesh; then ``then(host_mesh, census (1, 1) train
+    bytes)`` (phase 15) in the same group, destroyed in one ``finally``.
+    -> the mesh probe's (launches, paths)."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_host_mesh, make_mesh, start_group
     with tempfile.TemporaryDirectory() as group_dir:
@@ -1314,7 +1330,9 @@ def mesh_phase(bank, queries, want, train_arg_bytes: dict, counters, *,
         try:
             out = mesh_probe_cell(bank, queries, want, mesh, counters,
                                   card=card)
-            census_cell(host_mesh, train_arg_bytes, card=card)
+            census = census_cell(host_mesh, train_arg_bytes, card=card)
+            if then is not None:
+                then(host_mesh, census)
         finally:
             dist.destroy_process_group()
     return out
@@ -1387,12 +1405,12 @@ def mesh_probe_cell(bank, queries, want, mesh, counters, *, card: str = ""
     return launches, paths
 
 
-def census_cell(host_mesh, train_arg_bytes: dict, *, card: str = "") -> None:
+def census_cell(host_mesh, train_arg_bytes: dict, *, card: str = "") -> dict:
     """The dry-run census on meta tensors at 16x16, 2x16x16 and
     ``host_mesh``: no device memory allocated, each cell's per-device
     argument GB beside the card's memory, and the (1, 1) LM_ARCH
     ``train_4k`` params and AdamW state equal to ``train_arg_bytes``,
-    what phase 11 allocated."""
+    what phase 11 allocated. -> those (1, 1) bytes."""
     import torch
     from repro_torch.launch.mesh import make_production_mesh
     torch.cuda.synchronize()
@@ -1423,6 +1441,279 @@ def census_cell(host_mesh, train_arg_bytes: dict, *, card: str = "") -> None:
           f"fit one card of {total_mem / 1e9:.1f} GB: {n_fit} | {LM_ARCH} "
           f"train_4k on (1, 1): params {got['params']} B and AdamW state "
           f"{got['opt']} B == phase 11's allocation | {card}", flush=True)
+    return got
+
+
+# -- phase 15: the LM steps run sharded over the card's (1, 1) DeviceMesh ---
+# llama3.2-1b FULL: a train step at phase 11's seq 4,096 x batch 2, then a
+# prefill of phase 10's 64-token prompt into a 256-token cache and 16
+# decode steps; deepseek-v2-lite-16b at FULL widths cut to 2 layers (one
+# dense, one MoE layer, MLA): a train step at batch 2 x seq 64, then a
+# 16-token prefill and 8 decode steps. On one rank every spec is () and
+# each DTensor is replicated, so the steps run the one-device kernels on
+# the same values: any difference fails the run.
+SHARD_DECODE, SHARD_MOE_DECODE = 16, 8
+SHARD_MOE_BATCH, SHARD_MOE_SEQ, SHARD_MOE_PROMPT = 2, 64, 16
+SHARD_TIMED = 8                    # decode steps timed a turn
+
+
+def tree_max_diff(a, b) -> float:
+    """The largest |a - b| over the leaves of two trees of one structure
+    (DTensors read whole, host ints compared): 0.0 when every leaf is
+    equal bit for bit; inf where shapes, dtypes or ints differ, nan where
+    a value is."""
+    import torch
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.sharding.rules import full_tree
+    worst = 0.0
+    for x, y in zip(tree_leaves(full_tree(a)), tree_leaves(full_tree(b)),
+                    strict=True):
+        if not isinstance(x, torch.Tensor):
+            worst = worst if x == y else math.inf
+        elif x.shape != y.shape or x.dtype != y.dtype:
+            worst = math.inf
+        elif not torch.equal(x, y):
+            worst = max(worst, float((x.float() - y.float()).abs().max()))
+    return worst
+
+
+def placed_bytes(tree) -> int:
+    """Bytes of the local shards of a placed tree's tensor leaves."""
+    from repro_torch.models.common import tree_leaves
+    n = 0
+    for t in tree_leaves(tree):
+        if hasattr(t, "to_local"):
+            t = t.to_local()
+        if hasattr(t, "element_size"):
+            n += t.numel() * t.element_size()
+    return n
+
+
+def timed_ms(fn) -> tuple:
+    """(fn's result, host ms of the call, the device synchronised)."""
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def sharded_train_case(model, mesh, args: tuple, placed=None) -> dict:
+    """One train step of ``model`` on one device from ``args`` = (params,
+    AdamW state, batch) and over ``mesh`` from the same values (as
+    ``placed`` there, else placed by the step), under torch's
+    deterministic algorithms:
+    the largest difference of each result tree, then host ms of both in
+    turns (one device, mesh, mesh, one device: each step's new state
+    freed before the next)."""
+    import torch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.optim.adamw import AdamWConfig
+    one = make_train_step(model, AdamWConfig())
+    sharded = make_train_step(model, AdamWConfig(), mesh=mesh)
+    run = {"one": lambda: one(*args),
+           "mesh": lambda: sharded(*(placed or args))}
+    ms = {"one": [], "mesh": []}
+    torch.use_deterministic_algorithms(True)
+    try:
+        (p1, o1, m1), t1 = timed_ms(run["one"])
+        (p2, o2, m2), t2 = timed_ms(run["mesh"])
+        ms["one"].append(t1)
+        ms["mesh"].append(t2)
+        diffs = {"loss": tree_max_diff(m1["loss"], m2["loss"]),
+                 "grad_norm": tree_max_diff(m1["grad_norm"],
+                                            m2["grad_norm"]),
+                 "params": tree_max_diff(p1, p2),
+                 "m": tree_max_diff(o1["m"], o2["m"]),
+                 "v": tree_max_diff(o1["v"], o2["v"]),
+                 "step": tree_max_diff(o1["step"], o2["step"])}
+        loss = float(m1["loss"])
+        out_dtensors = all(hasattr(t, "placements") for t in
+                           tree_leaves((p2, o2)))
+        del p1, o1, m1, p2, o2, m2
+        for name in ("mesh", "one"):
+            res, t = timed_ms(run[name])
+            ms[name].append(t)
+            del res
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return {"diffs": diffs, "loss": loss, "ms": ms,
+            "out_dtensors": out_dtensors}
+
+
+def sharded_serve_case(model, mesh, params, prompt, n_steps: int,
+                       max_len: int) -> dict:
+    """A prefill of ``prompt`` [B, S] into a ``max_len`` cache and
+    ``n_steps`` greedy decode steps (the one-device path's tokens fed to
+    both), on one device and over ``mesh``: the largest difference of
+    the prefill's logits, of each decode step's and of the last cache;
+    then SHARD_TIMED decode steps a turn from the prefilled caches (one
+    device, mesh, mesh, one device), host ms a token; the device
+    operations of one decode step on each path."""
+    import torch
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    pre = {"one": make_prefill_step(model, max_len),
+           "mesh": make_prefill_step(model, max_len, mesh=mesh)}
+    dec = {"one": make_serve_step(model),
+           "mesh": make_serve_step(model, mesh=mesh)}
+    out, diffs = {}, {"prefill": 0.0, "decode": 0.0}
+    for name in ("one", "mesh"):
+        out[name] = [pre[name](params, {"tokens": prompt})]
+    caches = {name: out[name][0][1] for name in out}
+    diffs["prefill"] = tree_max_diff(out["one"][0][0], out["mesh"][0][0])
+    first = dict(caches)
+    for _ in range(n_steps):
+        tok = out["one"][-1][0][:, -1].argmax(-1)[:, None].to(torch.int32)
+        for name in ("one", "mesh"):
+            out[name].append(dec[name](params, caches[name], tok))
+            caches[name] = out[name][-1][1]
+        diffs["decode"] = max(diffs["decode"], tree_max_diff(
+            out["one"][-1][0], out["mesh"][-1][0]))
+    diffs["cache"] = tree_max_diff(caches["one"], caches["mesh"])
+    tok = out["one"][-1][0][:, -1].argmax(-1)[:, None].to(torch.int32)
+    del out, caches
+    ms = {"one": [], "mesh": []}
+    for name in ("one", "mesh", "mesh", "one"):
+        def steps_(name=name):
+            c = first[name]
+            for _ in range(SHARD_TIMED):
+                _, c = dec[name](params, c, tok)
+        _, t = timed_ms(steps_)
+        ms[name].append(t / SHARD_TIMED)
+    rows = {name: device_rows(lambda name=name: dec[name](
+        params, first[name], tok)) for name in ("one", "mesh")}
+    return {"diffs": diffs, "ms": ms, "rows": rows}
+
+
+def sharded_faults(diffs: dict) -> list[str]:
+    """Each result tree of a sharded step that differs from the
+    one-device step's."""
+    return [f"{k} differs by {v}" for k, v in diffs.items() if v != 0.0]
+
+
+def sharded_phase(mesh, census_bytes: dict, *, device="cuda",
+                  card: str = "", smoke: bool = False) -> None:
+    """Phase 15 on the card's (1, 1) DeviceMesh (inside phase 14's
+    process group): llama3.2-1b FULL and deepseek-v2-lite-16b cut to 2
+    layers, their sharded train, prefill and decode steps held to the
+    one-device steps bit for bit, with the placed bytes (== the census's
+    ``census_bytes``), host ms in turns and device operations. ``smoke``:
+    both archs' smoke configs (the CPU tests)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.launch.train import build_trainer
+    from repro_torch.models import common as MC
+    t15 = time.monotonic()
+    held = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    # (a) llama3.2-1b FULL: the trainer's fresh state (phase 11's step 0)
+    init_state, step_fn, model = build_trainer(
+        LM_ARCH, smoke=smoke, device=device,
+        seq_len=None if smoke else TRAIN_SEQ,
+        batch=None if smoke else TRAIN_BATCH)
+    state = init_state()
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in step_fn.data.batch(0).items()}
+    cell = build_cell(get_arch(LM_ARCH), "train_4k", device=device,
+                      mesh=mesh, smoke=smoke)
+    placed = cell.place((state["params"], state["opt"], batch))
+    got = {k: placed_bytes(t) for k, t in zip(("params", "opt"), placed)}
+    want = {k: cell.arg_local_bytes()[k] for k in ("params", "opt")}
+    check(got == want == census_bytes,
+          f"sharded {LM_ARCH} train_4k on (1, 1): placed {got} B, "
+          f"Cell.arg_local_bytes {want} B, the census {census_bytes} B")
+    train = sharded_train_case(model, mesh, (state["params"], state["opt"],
+                                             batch), placed)
+    check(train["out_dtensors"], "the sharded train step returned a "
+          "plain tensor in its params or AdamW state")
+    faults = sharded_faults(train["diffs"])
+    check(not faults, f"sharded {LM_ARCH} train step != the one-device "
+          f"step: {faults}")
+    tokens_shape = tuple(batch["tokens"].shape)
+    del placed, cell, batch, step_fn
+    # the serving weights: bf16 copies of the state's params
+    params = MC.tree_map(lambda t: t.to(torch.bfloat16), state["params"])
+    del state
+    rng = np.random.default_rng(15)
+    prompt = torch.from_numpy(rng.integers(
+        0, model.cfg.vocab, (1, LM_PROMPT_LEN)).astype(np.int32)).to(device)
+    serve = sharded_serve_case(model, mesh, params, prompt, SHARD_DECODE,
+                               LM_MAX_LEN)
+    faults = sharded_faults(serve["diffs"])
+    check(not faults, f"sharded {LM_ARCH} prefill / decode != the "
+          f"one-device steps: {faults}")
+    del params
+    ops = {k: device_totals(r) for k, r in serve["rows"].items()}
+    per_op = {k: (statistics.median(serve["ms"][k]) / v[1] * 1e3
+                  if not isinstance(v, str) and v[1] else None)
+              for k, v in ops.items()}
+    print(f"sharded {LM_ARCH}: {model.cfg.name} on the (1, 1) DeviceMesh "
+          f"{tuple(mesh.mesh_dim_names)} (every spec (), every DTensor "
+          f"replicated), {str(MC.COMPUTE_DTYPE)[6:]} compute | train step at "
+          f"{tokens_shape} tokens from the trainer's fresh "
+          f"state (f32 master "
+          f"weights, deterministic algorithms): loss {train['loss']:.6f}, "
+          f"largest difference from the one-device step {train['diffs']} | "
+          f"placed bytes {got} == Cell.arg_local_bytes == the census's "
+          f"(1, 1) row | train host ms, one device, mesh, mesh, one device:"
+          f" {train['ms']['one'][0]:.1f}, {train['ms']['mesh'][0]:.1f}, "
+          f"{train['ms']['mesh'][1]:.1f}, {train['ms']['one'][1]:.1f} | "
+          f"prefill {LM_PROMPT_LEN} tokens (max_len {LM_MAX_LEN}) and "
+          f"{SHARD_DECODE} decode steps, bf16 weights: largest difference "
+          f"{serve['diffs']} | decode host ms a token ({SHARD_TIMED} steps a "
+          f"turn), one device, mesh, mesh, one device: "
+          f"{serve['ms']['one'][0]:.2f}, {serve['ms']['mesh'][0]:.2f}, "
+          f"{serve['ms']['mesh'][1]:.2f}, {serve['ms']['one'][1]:.2f} | one "
+          f"decode step profiled: one device {busy(ops['one'], serve['ms']['one'][0])}"
+          f", mesh {busy(ops['mesh'], serve['ms']['mesh'][0])} | host us a "
+          f"device operation, one device {per_op['one']}, mesh "
+          f"{per_op['mesh']} | {card}", flush=True)
+    # (b) deepseek-v2-lite-16b at FULL widths cut to 2 layers (MoE, MLA)
+    m = get_arch(MOE_ARCH).model(smoke=True) if smoke else cut_model(MOE_ARCH)
+    m.remat, m.q_chunk = True, 512
+    mp = MC.init_from_specs(m.param_specs(),
+                            torch.Generator(device).manual_seed(0), device)
+    from repro_torch.optim.adamw import adamw_init
+    mo = adamw_init(mp)
+    toks = torch.from_numpy(rng.integers(
+        0, m.cfg.vocab, (SHARD_MOE_BATCH, SHARD_MOE_SEQ + 1)).astype(
+            np.int32)).to(device)
+    train_moe = sharded_train_case(m, mesh, (mp, mo, {
+        "tokens": toks[:, :-1], "labels": toks[:, 1:]}))
+    faults = sharded_faults(train_moe["diffs"])
+    check(not faults, f"sharded {MOE_ARCH} (2 layers) train step != the "
+          f"one-device step: {faults}")
+    del mo
+    bp = MC.tree_map(lambda t: t.to(torch.bfloat16), mp)
+    del mp
+    serve_moe = sharded_serve_case(
+        m, mesh, bp, toks[:1, :SHARD_MOE_PROMPT], SHARD_MOE_DECODE,
+        SHARD_MOE_PROMPT + SHARD_MOE_DECODE + 1)
+    faults = sharded_faults(serve_moe["diffs"])
+    check(not faults, f"sharded {MOE_ARCH} (2 layers) prefill / decode != "
+          f"the one-device steps: {faults}")
+    del bp
+    ops = {k: device_totals(r) for k, r in serve_moe["rows"].items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"sharded {MOE_ARCH}: {m.cfg.name} cut to {m.cfg.n_layers} layers "
+          f"(one dense, one MoE layer of {m.cfg.n_experts} experts top-"
+          f"{m.cfg.top_k}, "
+          f"MLA) on the (1, 1) DeviceMesh, {str(MC.COMPUTE_DTYPE)[6:]} "
+          f"compute | train step at "
+          f"batch {SHARD_MOE_BATCH} x seq {SHARD_MOE_SEQ} (f32 master "
+          f"weights, deterministic algorithms): loss "
+          f"{train_moe['loss']:.6f}, largest difference {train_moe['diffs']}"
+          f" | train host ms in turns {train_moe['ms']} | prefill "
+          f"{SHARD_MOE_PROMPT} tokens and {SHARD_MOE_DECODE} decode steps: "
+          f"largest difference {serve_moe['diffs']} | decode host ms a token"
+          f" in turns {serve_moe['ms']} | one decode step profiled: one "
+          f"device {busy(ops['one'], serve_moe['ms']['one'][0])}, mesh "
+          f"{busy(ops['mesh'], serve_moe['ms']['mesh'][0])} | held before "
+          f"the phase {held:.2f} GB, peak over it {peak:.2f} GB | phase 15 "
+          f"{time.monotonic() - t15:.0f} s | {card}", flush=True)
 
 
 def main() -> None:
@@ -3362,6 +3653,15 @@ def main() -> None:
           f"{time.monotonic() - t_start:.0f} s", flush=True)
 
     # -- 14. the row split over a DeviceMesh and the dry-run census ---------
+    # -- 15. the LM steps sharded over the card's (1, 1) DeviceMesh, in
+    # phase 14's process group: they launch none of the seven kernels
+    def phase15(host_mesh, census_bytes):
+        reset_counts()
+        sharded_phase(host_mesh, census_bytes, device=dev, card=card)
+        launched = {name: fn.launches for name, fn in kernels.items()}
+        check(not any(launched.values()),
+              f"the sharded LM steps launched {launched}")
+
     t14 = time.monotonic()
     launches14, paths14 = mesh_phase(
         fstate.bank, queries, (f_member, f_probes, fstats), train_arg_bytes,
@@ -3371,11 +3671,11 @@ def main() -> None:
             paths=lambda: {k: bloom_paths(kernels[k]) for k in
                            ("bloom_probe", "cascade_probe") + bloomier_kernels},
             rule=bank_rule),
-        device=dev, card=card)
+        device=dev, card=card, then=phase15)
     for k in bank_kernels:
         q9[k] = q9.get(k, 0) + launches14[k]
-    print(f"mesh phase: {time.monotonic() - t14:.0f} s | {card} | total "
-          f"{time.monotonic() - t_start:.0f} s", flush=True)
+    print(f"mesh phases 14 and 15: {time.monotonic() - t14:.0f} s | {card} "
+          f"| total {time.monotonic() - t_start:.0f} s", flush=True)
 
     q9["bloom_probe"] += sum(l["bloom_probe"] for l in pc10 + pc12 + pc13)
     q9["bloom_gather"] += sum(l["gather"] for l in pc10 + pc12 + pc13)

@@ -18,6 +18,10 @@ Layout (the reference's, ``repro/checkpoint/store.py``):
   the train state is f32 and int.
 - **restore onto a device**: ``load(step, like_tree, device=)`` takes the
   place of the reference's ``shardings=``.
+- **sharded state**: a ``DTensor`` leaf is saved as its full value (every
+  rank joins its gather; rank 0 writes, the other ranks wait at a
+  barrier until the step is committed), and a ``DTensor`` leaf of
+  ``like_tree`` is restored placed as it is.
 """
 from __future__ import annotations
 
@@ -60,7 +64,14 @@ def _unflatten(tree, leaves: dict, prefix=()):
     return leaves["/".join(prefix)]
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
 def _to_numpy(key: str, leaf) -> np.ndarray:
+    if _is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         if leaf.dtype == torch.bfloat16:
             raise TypeError(
@@ -74,7 +85,17 @@ def _restore(arr: np.ndarray, like, device):
     """``arr`` as the leaf ``like`` stands for: filled into ``like`` in
     place where it is a tensor of that shape and dtype on ``device`` (or
     on its own device when ``device`` is None), else a new tensor on
-    ``device``, else the numpy array."""
+    ``device``, else the numpy array. A DTensor ``like`` gets its own
+    shard of ``arr``, placed as it is (``device`` does not apply)."""
+    if _is_dtensor(like):
+        from torch.distributed.tensor import distribute_tensor
+        placed = distribute_tensor(torch.from_numpy(arr).to(like.device),
+                                   like.device_mesh, like.placements)
+        if like.shape == placed.shape and like.dtype == placed.dtype:
+            with torch.no_grad():
+                like.to_local().copy_(placed.to_local())
+            return like
+        return placed
     if isinstance(like, torch.Tensor):
         target = torch.device(device) if device is not None else like.device
         src = torch.from_numpy(arr)
@@ -124,13 +145,31 @@ class CheckpointStore:
 
     # -- save / load ---------------------------------------------------------
     def save(self, step: int, tree) -> None:
+        """Commit ``tree`` as step ``step``. With DTensor leaves every
+        rank of their process group calls this: each gathers the full
+        values, rank 0 writes them, and all return once it has."""
+        flat = _flatten_with_paths(tree)
+        pairs = ((key, _to_numpy(key, leaf)) for key, leaf in flat)
+        if not any(_is_dtensor(leaf) for _, leaf in flat):
+            self._write(step, pairs)
+            return
+        import torch.distributed as dist
+        try:
+            if dist.get_rank() == 0:
+                self._write(step, pairs)
+            else:
+                for _ in pairs:          # join each leaf's gather
+                    pass
+        finally:
+            dist.barrier()
+
+    def _write(self, step: int, pairs) -> None:
         d_tmp = os.path.join(self.root, f"step_{step}.tmp")
         d_fin = os.path.join(self.root, f"step_{step}")
         shutil.rmtree(d_tmp, ignore_errors=True)
         os.makedirs(d_tmp)
         manifest = {"step": step, "leaves": []}
-        for key, leaf in _flatten_with_paths(tree):
-            arr = _to_numpy(key, leaf)
+        for key, arr in pairs:
             digest = self.put_chunk(arr)
             manifest["leaves"].append({
                 "key": key, "shape": list(arr.shape), "dtype": str(arr.dtype),

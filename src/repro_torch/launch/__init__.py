@@ -14,7 +14,10 @@ Not ported, by decision:
   ``torch.profiler`` and memory with the allocator's counters instead.
 - ``perf_iter`` compiles one cell under a variant of the sharding rules
   and reads XLA's analyses; without XLA it has nothing to compile.
-- ``sharding/ctx.py``: ``shard_activation`` is an identity unless a GSPMD
-  step runs inside ``activation_sharding_ctx``. It belongs to the LM
-  steps run sharded over a mesh, which are not ported yet (ROADMAP.md).
+
+These four are the only modules of the reference without a counterpart.
+The steps run sharded over a ``DeviceMesh`` (``steps.build_cell(mesh=)``,
+``sharding/ctx.py``): params, AdamW state, batches and caches as DTensors
+placed by the sharding rules, activations constrained at the reference's
+points.
 """

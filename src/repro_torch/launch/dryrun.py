@@ -28,8 +28,8 @@ import traceback
 
 from repro_torch.configs import REGISTRY, applicable_shapes
 from repro_torch.configs.base import SHAPES
-from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.launch.steps import build_cell
+from repro_torch.launch.mesh import MeshShape, make_production_mesh
+from repro_torch.launch.steps import build_cell, is_device_mesh
 from repro_torch.sharding.rules import (DEFAULT_RULES, SP_RULES, local_shape,
                                         mesh_sizes, partition_spec)
 
@@ -55,8 +55,12 @@ def cell_rules(arch_id: str, shape_name: str, mesh):
 def run_cell(arch_id: str, shape_name: str, mesh, mesh_name: str,
              rules=None, verbose: bool = True) -> dict:
     """The census of one cell on ``mesh`` (a ``MeshShape``, a
-    ``DeviceMesh`` or anything the sharding rules can read)."""
+    ``DeviceMesh`` or anything the sharding rules can read). A
+    ``DeviceMesh`` is read as its names and sizes: the census builds no
+    step to run over it."""
     arch = REGISTRY[arch_id]
+    if is_device_mesh(mesh):
+        mesh = MeshShape(tuple(mesh.shape), tuple(mesh.mesh_dim_names))
     if rules is None:
         rules = cell_rules(arch_id, shape_name, mesh)
     cell = build_cell(arch, shape_name, device="meta", mesh=mesh,

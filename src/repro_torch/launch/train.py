@@ -35,6 +35,7 @@ from repro_torch.launch.steps import build_cell
 from repro_torch.models import common as MC
 from repro_torch.models.common import init_from_specs
 from repro_torch.optim.adamw import AdamWConfig, adamw_init
+from repro_torch.sharding.rules import distribute_tree
 
 
 class ResumableData:
@@ -75,15 +76,21 @@ class ResumableData:
 
 def build_trainer(arch_id: str, smoke: bool = True, device="cuda",
                   seq_len: int | None = None, batch: int | None = None,
-                  lr: float = 3e-4):
+                  lr: float = 3e-4, mesh=None):
     """(init_state, step_fn, model): ``init_state()`` is a fresh state
     (params from a seeded generator of ``device``, zero AdamW moments);
     ``step_fn(state, step)`` -> (state, loss) trains on the pipeline's
-    batch for ``step`` (``step_fn.data``, a ``ResumableData``)."""
+    batch for ``step`` (``step_fn.data``, a ``ResumableData``).
+
+    With ``mesh`` (a ``DeviceMesh`` on ``device``'s type), the state is
+    placed on it by the sharding rules and the step runs sharded: every
+    rank draws the same global batch from its own pipeline, and the step
+    places it (each rank keeps its rows), so the batch split is the
+    placement; the loss is read from the replicated scalar."""
     device = as_device(device)
     arch = get_arch(arch_id)
     cell = build_cell(arch, "train_4k", device=device, smoke=smoke,
-                      opt_cfg=AdamWConfig(lr=lr))
+                      opt_cfg=AdamWConfig(lr=lr), mesh=mesh)
     m = cell.model
     shape = (SMOKE_SHAPES if smoke else SHAPES)["train_4k"]
     seq = seq_len or shape.seq
@@ -99,7 +106,11 @@ def build_trainer(arch_id: str, smoke: bool = True, device="cuda",
         params = init_from_specs(m.param_specs(),
                                  torch.Generator(device).manual_seed(0),
                                  device)
-        return {"params": params, "opt": adamw_init(params),
+        opt = adamw_init(params)
+        if mesh is not None:
+            params, opt = (distribute_tree(t, mesh, sp) for t, sp in
+                           zip((params, opt), cell.arg_specs))
+        return {"params": params, "opt": opt,
                 "step_count": np.zeros((), np.int64)}
 
     def step_fn(state, step):

@@ -12,9 +12,13 @@ Conventions, as in the reference (``repro/models/common.py``):
   (XLA fuses those casts; eager torch does not, so a caller that runs many
   steps may hand in weights already in the compute dtype — the numbers are
   the same, since the cast is).
-- The reference's ``shard_activation`` calls are no-ops without a mesh;
-  the port's ``sharding/`` has the rules but no activation context yet,
-  so the models leave those calls out.
+- The reference's ``shard_activation`` calls stand at its points here
+  too: an identity without a context; inside ``activation_sharding_ctx``
+  (a step run over a ``DeviceMesh``) params and activations are
+  ``DTensor``s and each call redistributes to the rules' placements.
+  Most ops take DTensors as they are; those that do not (the embedding
+  of a vocab-split table, ``matmul_f32``'s ``out_dtype`` product, the
+  MoE's routing and combine) run under ``local_map``.
 
 - Training differentiates these functions with torch autograd. Two
   carry a hand-written backward that keeps the reference's dtypes: the
@@ -24,11 +28,14 @@ Conventions, as in the reference (``repro/models/common.py``):
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from repro_torch.sharding.ctx import current, shard_activation
 
 
 @dataclass(frozen=True)
@@ -141,10 +148,251 @@ class _EmbedLookup(torch.autograd.Function):
         return d_table.to(ctx.table_dtype), None
 
 
+class _ShardEmbedLookup(torch.autograd.Function):
+    """``_EmbedLookup`` on one shard of a table split on its rows, the
+    shard holding rows [lo, lo + rows): a token outside them looks up
+    zeros, and its ``dx`` row adds nothing (it is zeroed before the
+    scatter, so the shard's gradient sums the same rows in the same order
+    as the whole table's)."""
+
+    @staticmethod
+    def forward(ctx, table, tokens, lo: int):
+        # the tokens' own integer dtype: index_add_ of bf16 rows sums in
+        # another order for int32 and int64 indices
+        ids = tokens - lo
+        valid = (ids >= 0) & (ids < table.shape[0])
+        ids = torch.where(valid, ids, 0)
+        ctx.save_for_backward(ids, valid)
+        ctx.table_shape, ctx.table_dtype = table.shape, table.dtype
+        rows = torch.nn.functional.embedding(ids, table).to(COMPUTE_DTYPE)
+        return rows.masked_fill(~valid[..., None], 0)
+
+    @staticmethod
+    def backward(ctx, dx):
+        ids, valid = ctx.saved_tensors
+        d = ctx.table_shape[1]
+        dx = dx.masked_fill(~valid[..., None], 0)
+        d_table = torch.zeros(ctx.table_shape, dtype=dx.dtype, device=dx.device)
+        d_table.index_add_(0, ids.reshape(-1), dx.reshape(-1, d))
+        return d_table.to(ctx.table_dtype), None, None
+
+
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """The rows of ``table`` at ``tokens``, in the compute dtype, with the
-    reference's embedding gradient (``_EmbedLookup``)."""
+    reference's embedding gradient (``_EmbedLookup``); a DTensor table
+    through ``sharded_embed``."""
+    if _is_dtensor(table):
+        return sharded_embed(table, tokens)
     return _EmbedLookup.apply(table, tokens)
+
+
+# ---------------------------------------------------------------------------
+# DTensor arguments (a step run over a DeviceMesh)
+# ---------------------------------------------------------------------------
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _on_mesh(x, mesh):
+    """``x`` as a DTensor on ``mesh``: a plain tensor (a constant every
+    rank holds whole) as replicated."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(x, DTensor):
+        return x
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _no_partial(x):
+    """``x`` with every ``Partial`` placement summed (all-reduced) to
+    ``Replicate``."""
+    from torch.distributed.tensor import Replicate
+    want = [Replicate() if p.is_partial() else p for p in x.placements]
+    return x if want == list(x.placements) else x.redistribute(
+        x.device_mesh, want)
+
+
+def _grad_placements(inp, out) -> list:
+    """The placements of the gradient of a ``local_map`` input placed as
+    ``inp`` whose output is placed as ``out`` (one product or lookup per
+    rank): where the input is whole on a mesh dim that splits the output,
+    each rank's gradient is a partial sum over that dim."""
+    from torch.distributed.tensor import Partial
+    return [Partial() if pi.is_replicate() and po.is_shard() else pi
+            for pi, po in zip(inp, out)]
+
+
+def gather_weights(tree):
+    """Inside a context, ``tree`` with each DTensor leaf whole
+    (``Replicate``) on the data-parallel mesh axes (those the rules split
+    the batch over): a weight split there (FSDP) is gathered where a
+    layer uses it, and DTensor's backward of the gather reduce-scatters
+    its gradient. Other placements stay. ``tree`` itself outside one."""
+    ctx = current()
+    if ctx is None:
+        return tree
+    from torch.distributed.tensor import Replicate
+    dims = ctx[1].mesh_axes_for("batch")
+
+    def one(w):
+        if not _is_dtensor(w):
+            return w
+        names = w.device_mesh.mesh_dim_names
+        want = [Replicate() if names[i] in dims else p
+                for i, p in enumerate(w.placements)]
+        return w if want == list(w.placements) else w.redistribute(
+            w.device_mesh, want)
+    return tree_map(one, tree)
+
+
+def sharded_embed(table, tokens):
+    """``embed_lookup`` of a DTensor ``table`` [V, D] under ``local_map``.
+    The table is whole on its embed dim (a split there is gathered first)
+    and may be split on its rows (else each rank runs ``_EmbedLookup``):
+    each rank of such a mesh dim looks up the rows it holds and zeros for
+    the rest (``_ShardEmbedLookup``), so
+    the output is ``Partial`` there, its sum exact (one rank contributes
+    each row); elsewhere it is placed as ``tokens``. Each rank's table
+    gradient covers its own rows, summed in ``dx``'s dtype, then cast."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    tokens = _on_mesh(tokens, mesh)
+    t_pl = [Shard(0) if p == Shard(0) else Replicate()
+            for p in table.placements]
+    row_dims = [i for i, p in enumerate(t_pl) if p.is_shard()]
+    k_pl = [Replicate() if i in row_dims else p
+            for i, p in enumerate(tokens.placements)]
+    out_pl = [Partial() if i in row_dims else p for i, p in enumerate(k_pl)]
+    n_rows = table.shape[0]
+    for i in row_dims:
+        n_rows //= mesh.size(i)
+    # DTensor splits a dim over several mesh dims in mesh order
+    part = 0
+    for i in row_dims:
+        part = part * mesh.size(i) + mesh.get_local_rank(i)
+    lo = part * n_rows
+    lookup = (_EmbedLookup.apply if not row_dims else
+              lambda t, k: _ShardEmbedLookup.apply(t, k, lo))
+    return local_map(
+        lookup, out_placements=out_pl, in_placements=(t_pl, k_pl),
+        in_grad_placements=(_grad_placements(t_pl, out_pl), k_pl),
+        device_mesh=mesh, redistribute_inputs=True)(table, tokens)
+
+
+def _product_placements(pa, pb, a_dim: int, b_dim: int):
+    """(a's, b's, the output's) placements on one mesh dim of ``a @ b``
+    (a [..., K], b [K, N]; or a [E, M, K], b [E, K, N]), given a's and
+    b's there (neither Partial): a dim of ``a`` split there keeps its
+    split (a batch dim; E beside b's E; K beside b's K, which gives a
+    ``Partial`` sum); otherwise b's split, with a's matching dim split to
+    meet it (a local slice, no transfer). A strided split (what a reshape
+    that merges a split dim into the one before it leaves) is gathered
+    first: ``local_map`` cannot place an output so."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    k_a, k_b = a_dim - 1, b_dim - 2
+    pa, pb = (Replicate() if type(p) not in (Shard, Replicate) else p
+              for p in (pa, pb))
+    if pa.is_shard():
+        d = pa.dim
+        if d == k_a:
+            return pa, Shard(k_b), Partial()
+        if b_dim == 3 and d == 0:
+            return pa, Shard(0), Shard(0)
+        return pa, Replicate(), Shard(d)
+    if pb.is_shard():
+        d = pb.dim
+        if d == k_b:
+            return Shard(k_a), pb, Partial()
+        if b_dim == 3 and d == 0:
+            return Shard(0), pb, Shard(0)
+        return pa, pb, Shard(a_dim - 1)
+    return pa, pb, Replicate()
+
+
+def _matmul_local(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if a.dtype == torch.float32:
+        return a @ b
+    if a.is_cuda:
+        return _MatmulF32.apply(a, b)
+    return a.float() @ b.float()
+
+
+def _sharded_matmul(a, b):
+    """``matmul_f32`` of DTensors under ``local_map``: each rank's product
+    is ``_matmul_local`` of its shards, placed by ``_product_placements``
+    on every mesh dim (a ``Partial`` input is summed first)."""
+    from torch.distributed.tensor.experimental import local_map
+    mesh = (a if _is_dtensor(a) else b).device_mesh
+    a, b = _no_partial(_on_mesh(a, mesh)), _no_partial(_on_mesh(b, mesh))
+    pl = [_product_placements(pa, pb, a.dim(), b.dim())
+          for pa, pb in zip(a.placements, b.placements)]
+    a_pl, b_pl, out_pl = ([p[i] for p in pl] for i in range(3))
+    return local_map(
+        _matmul_local, out_placements=out_pl, in_placements=(a_pl, b_pl),
+        in_grad_placements=(_grad_placements(a_pl, out_pl),
+                            _grad_placements(b_pl, out_pl)),
+        device_mesh=mesh, redistribute_inputs=True)(a, b)
+
+
+def replicated(fn, n_out: int, *args):
+    """``fn(*args)`` on a DTensor step's whole values: each DTensor
+    argument gathered to ``Replicate`` on every mesh dim, ``fn`` run on
+    the local (whole) tensors by ``local_map``, each of the ``n_out``
+    tensors it returns (one, or a tuple) replicated. Without a DTensor
+    argument, ``fn(*args)`` itself. For what has no DTensor strategy and
+    moves few bytes (the MoE's routing, dispatch and combine): every rank
+    computes the same values, so the gradients are whole too."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    meshes = [a.device_mesh for a in args if _is_dtensor(a)]
+    if not meshes:
+        return fn(*args)
+    mesh = meshes[0]
+    rep = [Replicate()] * mesh.ndim
+    args = [_no_partial(a).redistribute(mesh, rep) if _is_dtensor(a) else a
+            for a in args]
+    in_pl = tuple(rep if _is_dtensor(a) else None for a in args)
+    return local_map(fn, out_placements=rep if n_out == 1 else (rep,) * n_out,
+                     in_placements=in_pl, device_mesh=mesh)(*args)
+
+
+def by_rows_and_heads(fn, args: tuple, dims: tuple, out_dims: tuple):
+    """``fn(*args)`` for a computation independent across batch rows and
+    heads (a chunked scan): on DTensors, each rank runs ``fn`` on its
+    rows and heads under ``local_map``. ``dims[i]`` = (batch dim, head
+    dim) of ``args[i]`` (None where it has none; a non-tensor argument's
+    entry is ignored), ``out_dims`` the same for each output. The split
+    follows ``args[0]``'s: a mesh dim that splits its batch dim splits
+    every batch dim, one that splits its head dim every head dim, any
+    other is gathered whole. An input whole where the outputs are split
+    gets a partial-sum gradient. Without a DTensor argument,
+    ``fn(*args)`` itself."""
+    if not any(_is_dtensor(a) for a in args):
+        return fn(*args)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = next(a.device_mesh for a in args if _is_dtensor(a))
+    lead_b, lead_h = dims[0]
+    role = [("b" if p == Shard(lead_b) else "h" if p == Shard(lead_h)
+             else None) for p in _on_mesh(args[0], mesh).placements]
+
+    def pl(bh):
+        return [Shard(bh[0]) if r == "b" and bh[0] is not None else
+                Shard(bh[1]) if r == "h" and bh[1] is not None else
+                Replicate() for r in role]
+    tensor = [isinstance(a, torch.Tensor) for a in args]
+    in_pl = tuple(pl(d) if t else None for d, t in zip(dims, tensor))
+    out_pl = tuple(pl(d) for d in out_dims)
+    grad_pl = tuple(_grad_placements(p, out_pl[0]) if p else None
+                    for p in in_pl)
+    args = [_no_partial(_on_mesh(a, mesh)) if t else a
+            for a, t in zip(args, tensor)]
+    return local_map(fn, out_placements=out_pl, in_placements=in_pl,
+                     in_grad_placements=grad_pl, device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
@@ -210,27 +458,101 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     an f32 result: products of the inputs' dtype summed in f32, the
     reference's ``preferred_element_type=jnp.float32``. On the card a
     bf16 product writes f32 directly (``out_dtype``) rather than widening
-    ``b``, and its backward is ``_MatmulF32``'s."""
-    if a.dtype == torch.float32:
-        return a @ b
-    if a.is_cuda:
-        return _MatmulF32.apply(a, b)
-    return a.float() @ b.float()
+    ``b``, and its backward is ``_MatmulF32``'s. DTensors go through
+    ``_sharded_matmul`` (``out_dtype`` has no DTensor strategy)."""
+    if _is_dtensor(a) or _is_dtensor(b):
+        return _sharded_matmul(a, b)
+    return _matmul_local(a, b)
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  mask: torch.Tensor | None = None) -> torch.Tensor:
     """Mean next-token cross entropy; logits [B,S,V] any float, labels
     int. With ``mask``, the mean over the positions it marks (at least
-    one)."""
-    lg = logits.float()
-    lse = torch.logsumexp(lg, dim=-1)
-    gold = torch.gather(lg, -1, labels[..., None].long())[..., 0]
-    nll = lse - gold
+    one). DTensor logits split on the vocabulary take the vocab-parallel
+    form (``_vocab_parallel_nll``): no rank gathers the whole vocabulary."""
+    if _is_dtensor(logits) and _vocab_dims(logits):
+        nll = _vocab_parallel_nll(logits, labels)
+    else:
+        lg = logits.float()
+        lse = torch.logsumexp(lg, dim=-1)
+        gold = torch.gather(lg, -1, labels[..., None].long())[..., 0]
+        nll = lse - gold
     if mask is None:
         return torch.mean(nll)
     m = mask.float()
     return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
+
+
+def _vocab_dims(x) -> list:
+    """The mesh dims that split DTensor ``x``'s last dim."""
+    from torch.distributed.tensor import Shard
+    return [i for i, p in enumerate(x.placements) if p == Shard(x.dim() - 1)]
+
+
+class _VocabParallelNll(torch.autograd.Function):
+    """Each token's negative log-likelihood from one rank's slice of the
+    vocabulary, columns [lo, lo + V_local), over the process ``groups``
+    that split it: the running max and the sum of exponentials are
+    all-reduced (max, then sum), and the gold logit comes from the rank
+    that holds it (a sum over the others' zeros). The backward is each
+    rank's slice of softmax - onehot, in the logits' dtype."""
+
+    @staticmethod
+    def forward(ctx, lg, labels, lo: int, groups):
+        import torch.distributed as dist
+        lgf = lg.float()
+        mx = lgf.amax(-1)
+        for g in groups:
+            dist.all_reduce(mx, dist.ReduceOp.MAX, group=g)
+        e = torch.exp(lgf - mx[..., None])
+        se = e.sum(-1)
+        ids = labels.long() - lo
+        valid = (ids >= 0) & (ids < lg.shape[-1])
+        ids = torch.where(valid, ids, 0)
+        gold = torch.where(valid, torch.gather(lgf, -1, ids[..., None])[..., 0],
+                           0.0)
+        for g in groups:
+            dist.all_reduce(se, group=g)
+            dist.all_reduce(gold, group=g)
+        ctx.save_for_backward(e, se, ids, valid)
+        ctx.dtype = lg.dtype
+        return torch.log(se) + mx - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        e, se, ids, valid = ctx.saved_tensors
+        d = e / se[..., None]
+        d.scatter_add_(-1, ids[..., None], -valid[..., None].to(d.dtype))
+        return (d * g[..., None]).to(ctx.dtype), None, None, None
+
+
+def _vocab_parallel_nll(logits, labels):
+    """Per-token nll [B, S] of DTensor ``logits`` split on the vocabulary,
+    under ``local_map``: each rank's vocabulary slice and its rows of
+    ``labels``; the result is whole over the vocabulary's mesh dims and
+    placed as the logits' rows elsewhere."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    logits = _no_partial(logits)
+    mesh = logits.device_mesh
+    labels = _on_mesh(labels, mesh)
+    dims = _vocab_dims(logits)
+    out_pl = [Replicate() if i in dims else p
+              for i, p in enumerate(logits.placements)]
+    n_cols = logits.shape[-1]
+    part = 0
+    for i in dims:
+        n_cols //= mesh.size(i)
+        part = part * mesh.size(i) + mesh.get_local_rank(i)
+    groups = [mesh.get_group(i) for i in dims]
+    return local_map(
+        lambda lg, lab: _VocabParallelNll.apply(lg, lab, part * n_cols,
+                                                groups),
+        out_placements=out_pl,
+        in_placements=(list(logits.placements), out_pl),
+        in_grad_placements=(list(logits.placements), out_pl),
+        device_mesh=mesh, redistribute_inputs=True)(logits, labels)
 
 
 # ---------------------------------------------------------------------------
@@ -267,6 +589,18 @@ def dense_attention(q, k, v, *, causal: bool, q_chunk: int = 4096,
     mask out cache positions >= this (decode with static cache). Both are
     host ints, so no mask needs a device value on the host.
     """
+    q = shard_activation(q, ("batch", "seq", "heads", "head_dim"))
+    if q.shape[1] == 1:
+        # decode: keep the KV cache head_dim-sharded; the q·k contraction
+        # over the sharded head_dim yields PARTIAL scores ([B,H,1,Sk], tiny)
+        # + all-reduce — instead of per-layer all-gathers of the cache.
+        kv_ax = ("batch", "seq_kv", "kv_heads", "kv_cache_head_dim")
+    else:
+        # train/prefill: k/v are fresh transients; replicate head_dim so the
+        # heads-sharded q contracts locally (scores stay head-sharded).
+        kv_ax = ("batch", "seq_kv", "kv_heads", None)
+    k = shard_activation(k, kv_ax)
+    v = shard_activation(v, kv_ax)
     B, Sq, H, dh = q.shape
     Sk = k.shape[1]
     scale = 1.0 / math.sqrt(dh)
@@ -298,6 +632,8 @@ def dense_attention(q, k, v, *, causal: bool, q_chunk: int = 4096,
 def swiglu(x, wi_gate, wi_up, wo):
     h = x @ wi_gate.to(x.dtype)
     u = x @ wi_up.to(x.dtype)
+    h = shard_activation(h, ("batch", "seq", "mlp"))
+    u = shard_activation(u, ("batch", "seq", "mlp"))
     h = torch.nn.functional.silu(h.float()).to(x.dtype) * u
     return h @ wo.to(x.dtype)
 
@@ -362,11 +698,38 @@ def moe_block(x, params, *, n_experts: int, top_k: int,
     rounded to x's dtype before they multiply, as the reference's
     ``comb.astype(x.dtype)``; products and sums in f32, then rounded to
     x's dtype once. Every expert's weights are read whatever the routing
-    (the reference's [E, cap] layout)."""
+    (the reference's [E, cap] layout).
+
+    On DTensors the routing, dispatch and combine run on every rank over
+    the whole batch (``replicated``: a group's slots count every token of
+    it), and the expert products are split as the rules place the
+    ``[E, G*cap, D]`` rows: ``expert`` is dim 0 here, where the
+    reference's ``[G, E, cap, D]`` has it at dim 1."""
+    B, S, D = x.shape
+    xe, row, w = replicated(functools.partial(
+        _moe_dispatch, n_experts=n_experts, top_k=top_k,
+        capacity_factor=capacity_factor, group_size=group_size), 3,
+        x, params["router"])
+    xe = shard_activation(xe, ("expert", None, None))
+    h = matmul_f32(xe, params["wi_gate"].to(x.dtype))
+    u = matmul_f32(xe, params["wi_up"].to(x.dtype))
+    h = shard_activation(h, ("expert", None, "mlp"))
+    u = shard_activation(u, ("expert", None, "mlp"))
+    h = (torch.nn.functional.silu(h) * u).to(x.dtype)
+    ye = torch.bmm(h, params["wo"].to(x.dtype))
+    ye = shard_activation(ye, ("expert", None, None))
+    return replicated(_moe_combine, 1, ye, row, w).reshape(B, S, D)
+
+
+def _moe_dispatch(x, router, *, n_experts, top_k, capacity_factor,
+                  group_size):
+    """x [B,S,D] -> (xe [E, G*cap, D], each (token, choice)'s row [T, k]
+    (``E*G*cap`` where dropped), its combine weight [T, k] in x's
+    dtype)."""
     B, S, D = x.shape
     T = B * S
     xt = x.reshape(T, D)
-    gval, gidx = moe_route(xt, params["router"], top_k)
+    gval, gidx = moe_route(xt, router, top_k)
     G, Tg, cap = moe_capacity(T, top_k, n_experts, capacity_factor,
                               group_size)
     pos, keep = moe_slots(gidx, G, n_experts, cap)
@@ -377,14 +740,16 @@ def moe_block(x, params, *, n_experts: int, top_k: int,
     xe = xt.new_zeros(n_rows + 1, D).index_copy(
         0, row.reshape(-1), xt.repeat_interleave(top_k, dim=0))
     xe = xe[:n_rows].reshape(n_experts, G * cap, D)
-    h = matmul_f32(xe, params["wi_gate"].to(x.dtype))
-    u = matmul_f32(xe, params["wi_up"].to(x.dtype))
-    h = (torch.nn.functional.silu(h) * u).to(x.dtype)
-    ye = torch.bmm(h, params["wo"].to(x.dtype)).reshape(n_rows, D)
+    return xe, row, torch.where(keep, gval, 0.0).to(x.dtype)
+
+
+def _moe_combine(ye, row, w):
+    """ye [E, G*cap, D] -> each token's sum over its k choices of the
+    weighted rows [T, D], in ye's dtype (f32 products and sums)."""
+    ye = ye.reshape(-1, ye.shape[-1])
     ye = torch.nn.functional.pad(ye, (0, 0, 0, 1))      # the spare row: 0
-    w = torch.where(keep, gval, 0.0).to(x.dtype)
     yt = (w.float()[..., None] * ye[row].float()).sum(1)
-    return yt.to(x.dtype).reshape(B, S, D)
+    return yt.to(ye.dtype)
 
 
 def moe_param_specs(d_model: int, d_ff: int, n_experts: int) -> dict:

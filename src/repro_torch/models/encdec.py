@@ -19,6 +19,8 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.ctx import place_tree, shard_activation
+
 from . import common as C
 from .common import ParamSpec
 from .transformer import _cache_write, _f32_then_cast
@@ -154,12 +156,14 @@ class EncDecLM:
         S = x.shape[1]
         x = x + self.position_table(x.device)[:S].to(x.dtype)[None]
         for lp in params["enc_layers"]:
+            lp = C.gather_weights(lp)
             h = C.rms_norm(x, lp["ln1"])
             q, k, v = self._proj_qkv(lp["attn"], h, h)
             o = C.dense_attention(q, k, v, causal=False, q_chunk=self.q_chunk)
             x = x + self._out(lp["attn"], o, x.dtype)
             x = x + self._mlp(lp["mlp"], C.rms_norm(x, lp["ln2"]))
-        return C.rms_norm(x, params["ln_enc"])
+            x = shard_activation(x, ("batch", "seq_save", None))
+        return C.rms_norm(x, C.gather_weights(params["ln_enc"]))
 
     # ----------------------------------------------------------- decoder
     def _decoder(self, params, x, memory, caches=None, cache_len=0):
@@ -168,6 +172,7 @@ class EncDecLM:
         pe = self.position_table(x.device)
         x = x + pe[cache_len:cache_len + S][None].to(x.dtype)
         for i, lp in enumerate(params["dec_layers"]):
+            lp = C.gather_weights(lp)
             h = C.rms_norm(x, lp["ln1"])
             q, k, v = self._proj_qkv(lp["self_attn"], h, h)
             if caches is None:
@@ -188,11 +193,13 @@ class EncDecLM:
             o = C.dense_attention(q, k, v, causal=False, q_chunk=self.q_chunk)
             x = x + self._out(lp["cross_attn"], o, x.dtype)
             x = x + self._mlp(lp["mlp"], C.rms_norm(x, lp["ln3"]))
+            x = shard_activation(x, ("batch", "seq_save", None))
             new_caches.append(nc)
-        return C.rms_norm(x, params["ln_dec"]), new_caches
+        return C.rms_norm(x, C.gather_weights(params["ln_dec"])), new_caches
 
     def _logits(self, params, x):
-        lg = C.matmul_f32(x, params["lm_head"].to(x.dtype))
+        lg = C.matmul_f32(x, C.gather_weights(params["lm_head"]).to(x.dtype))
+        lg = shard_activation(lg, ("batch", "seq", "vocab"))
         c = self.cfg
         if c.padded_vocab != c.vocab:
             pad = torch.arange(c.padded_vocab, device=lg.device) >= c.vocab
@@ -203,7 +210,7 @@ class EncDecLM:
     def loss(self, params, batch):
         tokens, labels = batch["tokens"], batch["labels"]
         memory = self.encode(params, batch["frames"])
-        x = C.embed_lookup(params["embed"], tokens)
+        x = C.embed_lookup(C.gather_weights(params["embed"]), tokens)
         x, _ = self._decoder(params, x, memory)
         return C.softmax_xent(self._logits(params, x), labels,
                               batch.get("loss_mask"))
@@ -212,8 +219,9 @@ class EncDecLM:
         tokens = batch["tokens"]
         B, S = tokens.shape
         memory = self.encode(params, batch["frames"])
-        caches = self.empty_caches(B, max_len, device=tokens.device)
-        x = C.embed_lookup(params["embed"], tokens)
+        caches = place_tree(self.empty_caches(B, max_len, device=tokens.device),
+                            self.cache_axes()["layers"])
+        x = C.embed_lookup(C.gather_weights(params["embed"]), tokens)
         x, caches = self._decoder(params, x, memory, caches=caches,
                                   cache_len=0)
         return self._logits(params, x[:, -1:]), {
@@ -222,7 +230,7 @@ class EncDecLM:
     def decode_step(self, params, cache, tokens):
         """tokens [B,1]; ``cache['len']`` is a host int."""
         ln = cache["len"]
-        x = C.embed_lookup(params["embed"], tokens)
+        x = C.embed_lookup(C.gather_weights(params["embed"]), tokens)
         x, caches = self._decoder(params, x, cache["memory"],
                                   caches=cache["layers"], cache_len=ln)
         return self._logits(params, x), {"layers": caches,

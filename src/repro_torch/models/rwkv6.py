@@ -34,6 +34,8 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.ctx import place_tree, shard_activation
+
 from . import common as C
 from .common import ParamSpec
 from .transformer import _f32_then_cast
@@ -200,7 +202,12 @@ class RWKV6LM:
         r, k, v, g = (proj(xr, tp["wr"]), proj(xk, tp["wk"]),
                       proj(xv, tp["wv"]), proj(xg, tp["wg"]))
         lw = self._log_decay(tp, xw)                        # [B,S,H,dh] f32
-        y, state = _chunk_wkv(r, k, v, lw, tp["u"], state0, self.chunk)
+        # on DTensors each rank runs the chunks of its own rows and heads
+        # (the cumsum's backward is a flipped cumsum, which DTensor does
+        # not shard on every torch)
+        y, state = C.by_rows_and_heads(
+            _chunk_wkv, (r, k, v, lw, tp["u"], state0, self.chunk),
+            ((0, 2),) * 4 + ((None, 0), (0, 1), None), ((0, 2), (0, 1)))
         # per-head group norm then output proj
         yf = C.rms_norm(y.reshape(B, S, H * dh).to(x.dtype), tp["ln_x"])
         y = yf.reshape(B, S, H, dh) * F.silu(g.float()).to(x.dtype)
@@ -226,12 +233,16 @@ class RWKV6LM:
                                  dtype=torch.float32, device=device)}
 
     def _layer_apply(self, lp, x, cache):
+        """One layer and the boundary constraint (over a mesh, its weights
+        gathered on the data-parallel axes)."""
+        lp = C.gather_weights(lp)
         h, nxt, s1 = self._time_mix(lp["time"], C.rms_norm(x, lp["ln1"]),
                                     cache["xt"].to(x.dtype), cache["s"])
         x = x + h
         h, nxc = self._chan_mix(lp["chan"], C.rms_norm(x, lp["ln2"]),
                                 cache["xc"].to(x.dtype))
-        return x + h, {"xt": nxt, "xc": nxc, "s": s1}
+        x = shard_activation(x + h, ("batch", "seq_save", None))
+        return x, {"xt": nxt, "xc": nxc, "s": s1}
 
     def _backbone(self, params, x, caches=None):
         B = x.shape[0]
@@ -244,7 +255,8 @@ class RWKV6LM:
         return x, new_caches
 
     def _logits(self, params, x):
-        lg = C.matmul_f32(x, params["lm_head"].to(x.dtype))
+        lg = C.matmul_f32(x, C.gather_weights(params["lm_head"]).to(x.dtype))
+        lg = shard_activation(lg, ("batch", "seq", "vocab"))
         c = self.cfg
         if c.padded_vocab != c.vocab:
             pad = torch.arange(c.padded_vocab, device=lg.device) >= c.vocab
@@ -254,9 +266,9 @@ class RWKV6LM:
     # -------------------------------------------------------------- entry
     def loss(self, params, batch):
         tokens, labels = batch["tokens"], batch["labels"]
-        x = C.embed_lookup(params["embed"], tokens)
+        x = C.embed_lookup(C.gather_weights(params["embed"]), tokens)
         x, _ = self._backbone(params, x)
-        x = C.rms_norm(x, params["ln_f"])
+        x = C.rms_norm(x, C.gather_weights(params["ln_f"]))
         return C.softmax_xent(self._logits(params, x), labels,
                               batch.get("loss_mask"))
 
@@ -267,18 +279,19 @@ class RWKV6LM:
 
     def prefill(self, params, batch, max_len: int):
         tokens = batch["tokens"]
-        x = C.embed_lookup(params["embed"], tokens)
-        x, caches = self._backbone(params, x, caches=self.init_caches(
-            tokens.shape[0], device=tokens.device))
-        x = C.rms_norm(x, params["ln_f"])
+        x = C.embed_lookup(C.gather_weights(params["embed"]), tokens)
+        x, caches = self._backbone(params, x, caches=place_tree(
+            self.init_caches(tokens.shape[0], device=tokens.device),
+            self.cache_axes()["layers"]))
+        x = C.rms_norm(x, C.gather_weights(params["ln_f"]))
         logits = self._logits(params, x[:, -1:])
         return logits, {"layers": caches, "len": tokens.shape[1]}
 
     def decode_step(self, params, cache, tokens):
         """tokens [B,1]. State recurrence — O(1) in context length."""
-        x = C.embed_lookup(params["embed"], tokens)
+        x = C.embed_lookup(C.gather_weights(params["embed"]), tokens)
         x, caches = self._backbone(params, x, caches=cache["layers"])
-        x = C.rms_norm(x, params["ln_f"])
+        x = C.rms_norm(x, C.gather_weights(params["ln_f"]))
         return self._logits(params, x), {"layers": caches,
                                          "len": cache["len"] + 1}
 

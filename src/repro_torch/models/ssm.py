@@ -28,6 +28,8 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.ctx import place_tree, shard_activation
+
 from . import common as C
 from .common import ParamSpec
 from .transformer import _cache_write, _f32_then_cast
@@ -212,7 +214,13 @@ class Zamba2LM:
         la = -torch.exp(lp["a_log"].float())[None, None] * dt  # ≤0
         xh = xin.reshape(B, S, H, dh)
         xb = xh.float() * dt[..., None]
-        y, state1 = _ssd_chunk(xb, b, cm, la, state0, self.chunk)
+        # on DTensors each rank scans its own rows and heads (the scan's
+        # cumsum has a flipped cumsum as its backward, which DTensor
+        # does not shard on every torch)
+        y, state1 = C.by_rows_and_heads(
+            _ssd_chunk, (xb, b, cm, la, state0, self.chunk),
+            ((0, 2), (0, None), (0, None), (0, 2), (0, 1), None),
+            ((0, 2), (0, 1)))
         y = y + lp["d_skip"].float()[None, None, :, None] * xh.float()
         y = y.reshape(B, S, Di).to(x.dtype)
         y = C.rms_norm(y * F.silu(z.float()).to(x.dtype), lp["norm_g"])
@@ -231,6 +239,7 @@ class Zamba2LM:
         c = self.cfg
         B, S, D = x.shape
         dh = c.dh_attn
+        sp = C.gather_weights(sp)
         h = C.rms_norm(x, sp["ln1"])
         q = _f32_then_cast(h, sp["attn"]["wq"].reshape(D, -1)).reshape(
             B, S, c.n_heads, dh)
@@ -287,7 +296,8 @@ class Zamba2LM:
         return [i for i in range(c.n_layers) if i % c.shared_every == c.shared_every - 1]
 
     def _mamba_layer(self, lp, x, mcache):
-        """One mamba block with its residual."""
+        """One mamba block with its residual and the boundary constraint
+        (over a mesh, its weights gathered on the data-parallel axes)."""
         c = self.cfg
         if mcache is None:
             cc = None
@@ -296,8 +306,10 @@ class Zamba2LM:
                              device=x.device)
         else:
             cc, s0 = mcache["conv"], mcache["s"]
+        lp = C.gather_weights(lp)
         h, nc, s1 = self._mamba(lp, C.rms_norm(x, lp["ln"]), cc, s0)
-        return x + h, {"conv": nc, "s": s1}
+        x = shard_activation(x + h, ("batch", "seq_save", None))
+        return x, {"conv": nc, "s": s1}
 
     def _backbone(self, params, x, positions, caches=None, cache_len=None):
         pts = set(self._shared_points())
@@ -316,7 +328,8 @@ class Zamba2LM:
         return x, new_caches
 
     def _logits(self, params, x):
-        lg = C.matmul_f32(x, params["lm_head"].to(x.dtype))
+        lg = C.matmul_f32(x, C.gather_weights(params["lm_head"]).to(x.dtype))
+        lg = shard_activation(lg, ("batch", "seq", "vocab"))
         c = self.cfg
         if c.padded_vocab != c.vocab:
             pad = torch.arange(c.padded_vocab, device=lg.device) >= c.vocab
@@ -328,9 +341,9 @@ class Zamba2LM:
         tokens, labels = batch["tokens"], batch["labels"]
         B, S = tokens.shape
         pos = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
-        x = C.embed_lookup(params["embed"], tokens)
+        x = C.embed_lookup(C.gather_weights(params["embed"]), tokens)
         x, _ = self._backbone(params, x, pos)
-        x = C.rms_norm(x, params["ln_f"])
+        x = C.rms_norm(x, C.gather_weights(params["ln_f"]))
         return C.softmax_xent(self._logits(params, x), labels,
                               batch.get("loss_mask"))
 
@@ -338,10 +351,11 @@ class Zamba2LM:
         tokens = batch["tokens"]
         B, S = tokens.shape
         pos = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
-        caches = self.empty_caches(B, max_len, device=tokens.device)
-        x = C.embed_lookup(params["embed"], tokens)
+        caches = place_tree(self.empty_caches(B, max_len, device=tokens.device),
+                            self.cache_axes()["layers"])
+        x = C.embed_lookup(C.gather_weights(params["embed"]), tokens)
         x, caches = self._backbone(params, x, pos, caches=caches, cache_len=0)
-        x = C.rms_norm(x, params["ln_f"])
+        x = C.rms_norm(x, C.gather_weights(params["ln_f"]))
         return self._logits(params, x[:, -1:]), {"layers": caches, "len": S}
 
     def decode_step(self, params, cache, tokens):
@@ -349,10 +363,10 @@ class Zamba2LM:
         B = tokens.shape[0]
         ln = cache["len"]
         pos = torch.full((B, 1), ln, device=tokens.device)
-        x = C.embed_lookup(params["embed"], tokens)
+        x = C.embed_lookup(C.gather_weights(params["embed"]), tokens)
         x, caches = self._backbone(params, x, pos, caches=cache["layers"],
                                    cache_len=ln)
-        x = C.rms_norm(x, params["ln_f"])
+        x = C.rms_norm(x, C.gather_weights(params["ln_f"]))
         return self._logits(params, x), {"layers": caches, "len": ln + 1}
 
     # -------------------------------------------------------------- cache

@@ -21,6 +21,8 @@ from dataclasses import dataclass
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.sharding.ctx import place_tree, shard_activation
+
 from . import common as C
 from .common import ParamSpec
 
@@ -293,12 +295,20 @@ class TransformerLM:
                         lp["mlp"]["wo"])
 
     def _layer_apply(self, lp, x, moe: bool, *, positions, cache, cache_len):
-        """One transformer block -> (x, new_cache)."""
+        """One transformer block -> (x, new_cache). Megatron-SP
+        discipline: the layer-boundary activations are sequence-sharded
+        where the rules map ``seq_save`` to a mesh axis. Over a mesh the
+        layer's weights are gathered on the data-parallel axes here, so
+        one layer's whole weights are alive at a time (and, under remat,
+        gathered again in the backward)."""
+        lp = C.gather_weights(lp)
+        x = shard_activation(x, ("batch", "seq", None))
         h, nc = self._attn(lp["attn"], C.rms_norm(x, lp["ln1"]),
                            positions=positions, cache=cache,
                            cache_len=cache_len)
         x = x + h
         x = x + self._mlp(lp, moe, C.rms_norm(x, lp["ln2"]))
+        x = shard_activation(x, ("batch", "seq_save", None))
         return x, nc
 
     def _backbone(self, params, x, *, positions, caches=None, cache_len=None):
@@ -320,10 +330,15 @@ class TransformerLM:
         return x, new_caches
 
     def _embed(self, params, tokens):
-        return C.embed_lookup(params["embed"], tokens)
+        return C.embed_lookup(C.gather_weights(params["embed"]), tokens)
+
+    def _final_norm(self, params, x):
+        return C.rms_norm(x, C.gather_weights(params["ln_f"]))
 
     def _logits(self, params, x):
-        lg = C.matmul_f32(x, params["lm_head"].to(x.dtype))
+        w = C.gather_weights(params["lm_head"])
+        lg = C.matmul_f32(x, w.to(x.dtype))
+        lg = shard_activation(lg, ("batch", "seq", "vocab"))
         c = self.cfg
         if c.padded_vocab != c.vocab:
             pad = torch.arange(c.padded_vocab, device=lg.device) >= c.vocab
@@ -339,7 +354,7 @@ class TransformerLM:
         pos = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
         x = self._embed(params, tokens)
         x, _ = self._backbone(params, x, positions=pos)
-        x = C.rms_norm(x, params["ln_f"])
+        x = self._final_norm(params, x)
         return C.softmax_xent(self._logits(params, x), labels,
                               batch.get("loss_mask"))
 
@@ -349,11 +364,12 @@ class TransformerLM:
         tokens = batch["tokens"]
         B, S = tokens.shape
         pos = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
-        caches = self.empty_caches(B, max_len, device=tokens.device)
+        caches = place_tree(self.empty_caches(B, max_len, device=tokens.device),
+                            self.cache_axes()["layers"])
         x = self._embed(params, tokens)
         x, caches = self._backbone(params, x, positions=pos, caches=caches,
                                    cache_len=0)
-        x = C.rms_norm(x, params["ln_f"])
+        x = self._final_norm(params, x)
         logits = self._logits(params, x[:, -1:])
         return logits, {"layers": caches, "len": S}
 
@@ -366,7 +382,7 @@ class TransformerLM:
         x = self._embed(params, tokens)
         x, caches = self._backbone(params, x, positions=pos,
                                    caches=cache["layers"], cache_len=ln)
-        x = C.rms_norm(x, params["ln_f"])
+        x = self._final_norm(params, x)
         return self._logits(params, x), {"layers": caches, "len": ln + 1}
 
     # -------------------------------------------------------------- cache

@@ -14,6 +14,8 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.sharding.ctx import place_tree
+
 from . import common as C
 from .transformer import TransformerConfig, TransformerLM
 
@@ -47,7 +49,7 @@ class VLM:
 
     def _join(self, params, patch_embeds, tokens):
         vis = patch_embeds.to(C.COMPUTE_DTYPE)
-        txt = C.embed_lookup(params["embed"], tokens)
+        txt = self.lm._embed(params, tokens)
         return torch.cat([vis, txt], dim=1)
 
     def _positions(self, B, n, device):
@@ -61,7 +63,7 @@ class VLM:
         x = self._join(params, batch["patch_embeds"], tokens)
         x, _ = self.lm._backbone(params, x, positions=self._positions(
             B, P + S, tokens.device))
-        x = C.rms_norm(x[:, P:], params["ln_f"])           # text positions
+        x = self.lm._final_norm(params, x[:, P:])          # text positions
         return C.softmax_xent(self.lm._logits(params, x), labels,
                               batch.get("loss_mask"))
 
@@ -70,11 +72,13 @@ class VLM:
         B, S = tokens.shape
         P = batch["patch_embeds"].shape[1]
         x = self._join(params, batch["patch_embeds"], tokens)
-        caches = self.lm.empty_caches(B, max_len, device=tokens.device)
+        caches = place_tree(
+            self.lm.empty_caches(B, max_len, device=tokens.device),
+            self.cache_axes()["layers"])
         x, caches = self.lm._backbone(
             params, x, positions=self._positions(B, P + S, tokens.device),
             caches=caches, cache_len=0)
-        x = C.rms_norm(x, params["ln_f"])
+        x = self.lm._final_norm(params, x)
         logits = self.lm._logits(params, x[:, -1:])
         return logits, {"layers": caches, "len": P + S}
 

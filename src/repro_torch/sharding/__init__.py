@@ -1,5 +1,6 @@
-"""The logical-axis sharding rules (``rules.py``). The reference's
-``ctx.py`` (activation constraints inside a sharded step) is not ported
-yet: see ``repro_torch/launch/__init__.py``."""
-from .rules import (DEFAULT_RULES, SP_RULES, ShardingRules, local_shape,
-                    mesh_sizes, partition_spec, placements, tree_specs)
+"""The logical-axis sharding rules (``rules.py``) and the activation
+constraints inside a step run over a mesh (``ctx.py``)."""
+from .ctx import activation_sharding_ctx, shard_activation
+from .rules import (DEFAULT_RULES, SP_RULES, ShardingRules, distribute_tree,
+                    full_tree, local_shape, mesh_sizes, partition_spec,
+                    placements, tree_specs)

@@ -30,7 +30,9 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass, field
 
-from repro_torch.models.common import tree_leaves, tree_unflatten
+# the models import ``sharding.ctx``: a module import, whose names are
+# read at call time, lets the two packages import each other
+import repro_torch.models.common as MC
 
 
 def _canon(v) -> tuple:
@@ -166,16 +168,59 @@ def tree_specs(mesh, rules: ShardingRules, axes_tree, shape_tree):
     """A tree like ``shape_tree`` (tensors, meta tensors or ParamSpecs)
     whose leaves are their partition specs, walked in lockstep with
     ``axes_tree`` (whose leaves are tuples of logical names). A leaf whose
-    axes are None or of another rank than its shape is replicated: ()."""
-    axes = tree_leaves(axes_tree, is_leaf=_is_axes)
-    leaves = tree_leaves(shape_tree)
+    axes are None or of another rank than its shape, or that has no
+    shape, is replicated: ()."""
+    axes = MC.tree_leaves(axes_tree, is_leaf=_is_axes)
+    leaves = MC.tree_leaves(shape_tree)
     if len(axes) != len(leaves):
         raise ValueError(f"{len(axes)} axes leaves for {len(leaves)} "
                          "tensors: the trees differ")
 
     def one(ax, leaf):
+        if not hasattr(leaf, "shape"):
+            return ()                    # a host int (a cache's length)
         shape = tuple(leaf.shape)
         if ax is None or len(ax) != len(shape):
             return ()
         return partition_spec(mesh, rules, ax, shape)
-    return tree_unflatten(shape_tree, [one(a, t) for a, t in zip(axes, leaves)])
+    return MC.tree_unflatten(shape_tree, [one(a, t) for a, t in zip(axes, leaves)])
+
+
+def spec_leaves(spec_tree) -> list:
+    """The partition specs of a spec tree, in ``tree_leaves`` order."""
+    return MC.tree_leaves(spec_tree, is_leaf=lambda x: isinstance(x, tuple))
+
+
+def distribute_tree(tree, mesh, spec_tree):
+    """``tree`` with each tensor leaf placed on ``mesh`` by its partition
+    spec in ``spec_tree`` (a tree like ``tree`` whose leaves are specs;
+    ``()`` is replicated): a plain tensor by ``distribute_tensor``, a
+    ``DTensor`` of other placements by ``redistribute``. A leaf that is
+    not a tensor (a cache's host-int length) is kept as it is."""
+    import torch
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    specs = spec_leaves(spec_tree)
+    leaves = MC.tree_leaves(tree)
+    if len(specs) != len(leaves):
+        raise ValueError(f"{len(specs)} specs for {len(leaves)} leaves: the "
+                         "trees differ")
+
+    def one(leaf, spec):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        want = tuple(placements(mesh, spec))
+        if isinstance(leaf, DTensor):
+            if tuple(leaf.placements) == want:
+                return leaf
+            return leaf.redistribute(mesh, want)
+        return distribute_tensor(leaf, mesh, want)
+    return MC.tree_unflatten(tree, [one(t, s) for t, s in zip(leaves, specs)])
+
+
+def full_tree(tree):
+    """``tree`` with each ``DTensor`` leaf replaced by a plain tensor of
+    its full value (every rank joins the gathers); other leaves as they
+    are."""
+    from torch.distributed.tensor import DTensor
+    return MC.tree_unflatten(tree, [t.full_tensor() if isinstance(t, DTensor)
+                                 else t for t in MC.tree_leaves(tree)])

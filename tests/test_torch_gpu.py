@@ -730,3 +730,64 @@ def test_mesh_filter_service_on_card_matches_one_device(cuda, tmp_path):
         torch.cuda.synchronize()
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch_id", ["llama3.2-1b", "deepseek-v2-lite-16b",
+                                     "zamba2-2.7b", "rwkv6-7b",
+                                     "whisper-tiny"])
+def test_sharded_steps_on_card_match_one_device(cuda, tmp_path, arch_id):
+    """A 1-rank NCCL group, the card's (1, 1) mesh: each family's smoke
+    train step at bf16 compute (f32 master weights, deterministic
+    algorithms), a 12-token prefill and 2 decode steps over the mesh,
+    whose products run ``_MatmulF32`` under ``local_map``, equal the
+    one-device steps bit for bit; the sharded state and caches are
+    DTensors, the loss and logits plain tensors."""
+    import warnings
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from _torch_ranks import serve_batch, step_inputs
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_host_mesh, start_group
+    from repro_torch.launch.steps import (make_prefill_step,
+                                          make_serve_step, make_train_step)
+    from repro_torch.models import common as MC
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    m = get_arch(arch_id).model(smoke=True)
+    p = MC.init_from_specs(m.param_specs(),
+                           torch.Generator(cuda).manual_seed(0), cuda)
+    opt = adamw_init(p)
+    inp = step_inputs(m, arch_id)
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in inp["batch"].items()}
+    was = MC.COMPUTE_DTYPE
+    MC.set_compute_dtype(torch.bfloat16)
+    start_group(str(tmp_path), 0, 1, device="cuda", timeout_s=60.0)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        mesh = make_host_mesh("cuda")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            one = make_train_step(m, AdamWConfig())(p, opt, batch)
+            sh = make_train_step(m, AdamWConfig(), mesh=mesh)(p, opt, batch)
+        assert all(isinstance(t, DTensor) for t in MC.tree_leaves(sh[:2]))
+        assert torch.equal(one[2]["loss"], sh[2]["loss"])
+        for a, b in zip(MC.tree_leaves(one[:2]), MC.tree_leaves(sh[:2])):
+            assert torch.equal(a, b.full_tensor())
+        bp = MC.tree_map(lambda t: t.to(torch.bfloat16), p)
+        prompt = serve_batch(inp, 12, lambda a: torch.from_numpy(a).to(cuda))
+        lg1, c1 = make_prefill_step(m, 16)(bp, prompt)
+        lg2, c2 = make_prefill_step(m, 16, mesh=mesh)(bp, prompt)
+        assert torch.equal(lg1, lg2) and not isinstance(lg2, DTensor)
+        for i in range(2):
+            step = torch.from_numpy(inp["decode"][i]).to(cuda)
+            lg1, c1 = make_serve_step(m)(bp, c1, step)
+            lg2, c2 = make_serve_step(m, mesh=mesh)(bp, c2, step)
+            assert torch.equal(lg1, lg2)
+        assert c1["len"] == c2["len"]
+        for a, b in zip(MC.tree_leaves(c1), MC.tree_leaves(c2)):
+            assert (a == b if isinstance(a, int)
+                    else torch.equal(a, b.full_tensor()))
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        MC.set_compute_dtype(was)
+        dist.destroy_process_group()

@@ -249,3 +249,29 @@ def test_chip_smoke_mesh_phase_fails_on_a_difference(smoke_phase, capsys,
                       device="cpu", card="cpu")
     assert says in capsys.readouterr().err
     assert not torch.distributed.is_initialized()
+
+
+def test_chip_smoke_sharded_phase_on_one_gloo_rank(smoke_phase, capsys):
+    """Phase 15 runs whole, at smoke width, after phase 14 in its 1-rank
+    gloo group: the sharded train, prefill and decode steps of the llama
+    and deepseek-v2-lite smokes equal the one-device steps bit for bit,
+    and the placed bytes equal the cell's (the census's row is the
+    smoke cell's here)."""
+    cs, svc, q, want, train, counters, _ = smoke_phase
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.launch.steps import build_cell
+    smoke_bytes = build_cell(
+        get_arch(cs.LM_ARCH), "train_4k", device="meta", smoke=True,
+        mesh=MeshShape((1, 1), ("data", "model"))).arg_local_bytes()
+    seen = []
+    cs.mesh_phase(svc.bank, q, want, train, counters, device="cpu",
+                  card="cpu", then=lambda mesh, census: seen.append(
+                      cs.sharded_phase(mesh, {k: smoke_bytes[k] for k in (
+                          "params", "opt")}, device="cpu", smoke=True)))
+    assert seen == [None]
+    out = capsys.readouterr().out
+    assert "largest difference from the one-device step {'loss': 0.0" in out
+    assert out.count("'params': 0.0, 'm': 0.0, 'v': 0.0, 'step': 0.0") == 2
+    assert out.count("{'prefill': 0.0, 'decode': 0.0, 'cache': 0.0}") == 2
+    assert not torch.distributed.is_initialized()
