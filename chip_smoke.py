@@ -1457,11 +1457,17 @@ SHARD_MOE_BATCH, SHARD_MOE_SEQ, SHARD_MOE_PROMPT = 2, 64, 16
 SHARD_TIMED = 8                    # decode steps timed a turn
 
 
+def worse(a: float, b: float) -> float:
+    """The larger of two differences; nan if either is (``max`` would
+    drop a nan that comes second)."""
+    return math.nan if math.isnan(a) or math.isnan(b) else max(a, b)
+
+
 def tree_max_diff(a, b) -> float:
     """The largest |a - b| over the leaves of two trees of one structure
     (DTensors read whole, host ints compared): 0.0 when every leaf is
-    equal bit for bit; inf where shapes, dtypes or ints differ, nan where
-    a value is."""
+    equal bit for bit; inf where shapes, dtypes or ints differ; nan where
+    a leaf holds a nan (in either tree, even at the same place)."""
     import torch
     from repro_torch.models.common import tree_leaves
     from repro_torch.sharding.rules import full_tree
@@ -1469,24 +1475,12 @@ def tree_max_diff(a, b) -> float:
     for x, y in zip(tree_leaves(full_tree(a)), tree_leaves(full_tree(b)),
                     strict=True):
         if not isinstance(x, torch.Tensor):
-            worst = worst if x == y else math.inf
+            worst = worst if x == y else worse(worst, math.inf)
         elif x.shape != y.shape or x.dtype != y.dtype:
-            worst = math.inf
+            worst = worse(worst, math.inf)
         elif not torch.equal(x, y):
-            worst = max(worst, float((x.float() - y.float()).abs().max()))
+            worst = worse(worst, float((x.float() - y.float()).abs().max()))
     return worst
-
-
-def placed_bytes(tree) -> int:
-    """Bytes of the local shards of a placed tree's tensor leaves."""
-    from repro_torch.models.common import tree_leaves
-    n = 0
-    for t in tree_leaves(tree):
-        if hasattr(t, "to_local"):
-            t = t.to_local()
-        if hasattr(t, "element_size"):
-            n += t.numel() * t.element_size()
-    return n
 
 
 def timed_ms(fn) -> tuple:
@@ -1569,7 +1563,7 @@ def sharded_serve_case(model, mesh, params, prompt, n_steps: int,
         for name in ("one", "mesh"):
             out[name].append(dec[name](params, caches[name], tok))
             caches[name] = out[name][-1][1]
-        diffs["decode"] = max(diffs["decode"], tree_max_diff(
+        diffs["decode"] = worse(diffs["decode"], tree_max_diff(
             out["one"][-1][0], out["mesh"][-1][0]))
     diffs["cache"] = tree_max_diff(caches["one"], caches["mesh"])
     tok = out["one"][-1][0][:, -1].argmax(-1)[:, None].to(torch.int32)
@@ -1606,6 +1600,7 @@ def sharded_phase(mesh, census_bytes: dict, *, device="cuda",
     from repro_torch.launch.steps import build_cell
     from repro_torch.launch.train import build_trainer
     from repro_torch.models import common as MC
+    from repro_torch.sharding.rules import local_bytes
     t15 = time.monotonic()
     held = torch.cuda.memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
@@ -1620,7 +1615,7 @@ def sharded_phase(mesh, census_bytes: dict, *, device="cuda",
     cell = build_cell(get_arch(LM_ARCH), "train_4k", device=device,
                       mesh=mesh, smoke=smoke)
     placed = cell.place((state["params"], state["opt"], batch))
-    got = {k: placed_bytes(t) for k, t in zip(("params", "opt"), placed)}
+    got = {k: local_bytes(t) for k, t in zip(("params", "opt"), placed)}
     want = {k: cell.arg_local_bytes()[k] for k in ("params", "opt")}
     check(got == want == census_bytes,
           f"sharded {LM_ARCH} train_4k on (1, 1): placed {got} B, "

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.bloom import BloomFilter, optimal_params
+from repro_torch.sharding.ctx import is_dtensor
 
 
 def _flatten_with_paths(tree, prefix=()):
@@ -64,13 +65,8 @@ def _unflatten(tree, leaves: dict, prefix=()):
     return leaves["/".join(prefix)]
 
 
-def _is_dtensor(x) -> bool:
-    from torch.distributed.tensor import DTensor
-    return isinstance(x, DTensor)
-
-
 def _to_numpy(key: str, leaf) -> np.ndarray:
-    if _is_dtensor(leaf):
+    if is_dtensor(leaf):
         leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         if leaf.dtype == torch.bfloat16:
@@ -87,7 +83,7 @@ def _restore(arr: np.ndarray, like, device):
     on its own device when ``device`` is None), else a new tensor on
     ``device``, else the numpy array. A DTensor ``like`` gets its own
     shard of ``arr``, placed as it is (``device`` does not apply)."""
-    if _is_dtensor(like):
+    if is_dtensor(like):
         from torch.distributed.tensor import distribute_tensor
         placed = distribute_tensor(torch.from_numpy(arr).to(like.device),
                                    like.device_mesh, like.placements)
@@ -150,7 +146,7 @@ class CheckpointStore:
         values, rank 0 writes them, and all return once it has."""
         flat = _flatten_with_paths(tree)
         pairs = ((key, _to_numpy(key, leaf)) for key, leaf in flat)
-        if not any(_is_dtensor(leaf) for _, leaf in flat):
+        if not any(is_dtensor(leaf) for _, leaf in flat):
             self._write(step, pairs)
             return
         import torch.distributed as dist

@@ -42,7 +42,7 @@ import torch
 from repro_torch.configs.base import ArchDef, SHAPES, SMOKE_SHAPES, input_specs
 from repro_torch.models.common import tree_leaves, tree_map, tree_unflatten
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_step
-from repro_torch.sharding.ctx import activation_sharding_ctx
+from repro_torch.sharding.ctx import activation_sharding_ctx, full_value
 from repro_torch.sharding.rules import (DEFAULT_RULES, ShardingRules,
                                         distribute_tree, local_shape,
                                         mesh_sizes, partition_spec,
@@ -98,13 +98,6 @@ def sharded(mesh, rules: ShardingRules):
     from torch.distributed.tensor.experimental import implicit_replication
     with implicit_replication(), activation_sharding_ctx(mesh, rules):
         yield
-
-
-def full_value(x):
-    """A DTensor's full value on every rank, as a plain tensor; a plain
-    tensor as it is."""
-    from torch.distributed.tensor import DTensor
-    return x.full_tensor() if isinstance(x, DTensor) else x
 
 
 def cache_specs_of(mesh, rules: ShardingRules, model, cache):

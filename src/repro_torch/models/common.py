@@ -35,7 +35,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch.sharding.ctx import current, shard_activation
+from repro_torch.sharding.ctx import current, is_dtensor, shard_activation
 
 
 @dataclass(frozen=True)
@@ -181,7 +181,7 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """The rows of ``table`` at ``tokens``, in the compute dtype, with the
     reference's embedding gradient (``_EmbedLookup``); a DTensor table
     through ``sharded_embed``."""
-    if _is_dtensor(table):
+    if is_dtensor(table):
         return sharded_embed(table, tokens)
     return _EmbedLookup.apply(table, tokens)
 
@@ -189,11 +189,6 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # DTensor arguments (a step run over a DeviceMesh)
 # ---------------------------------------------------------------------------
-
-def _is_dtensor(x) -> bool:
-    from torch.distributed.tensor import DTensor
-    return isinstance(x, DTensor)
-
 
 def _on_mesh(x, mesh):
     """``x`` as a DTensor on ``mesh``: a plain tensor (a constant every
@@ -237,7 +232,7 @@ def gather_weights(tree):
     dims = ctx[1].mesh_axes_for("batch")
 
     def one(w):
-        if not _is_dtensor(w):
+        if not is_dtensor(w):
             return w
         names = w.device_mesh.mesh_dim_names
         want = [Replicate() if names[i] in dims else p
@@ -325,7 +320,7 @@ def _sharded_matmul(a, b):
     is ``_matmul_local`` of its shards, placed by ``_product_placements``
     on every mesh dim (a ``Partial`` input is summed first)."""
     from torch.distributed.tensor.experimental import local_map
-    mesh = (a if _is_dtensor(a) else b).device_mesh
+    mesh = (a if is_dtensor(a) else b).device_mesh
     a, b = _no_partial(_on_mesh(a, mesh)), _no_partial(_on_mesh(b, mesh))
     pl = [_product_placements(pa, pb, a.dim(), b.dim())
           for pa, pb in zip(a.placements, b.placements)]
@@ -337,26 +332,37 @@ def _sharded_matmul(a, b):
         device_mesh=mesh, redistribute_inputs=True)(a, b)
 
 
-def replicated(fn, n_out: int, *args):
-    """``fn(*args)`` on a DTensor step's whole values: each DTensor
-    argument gathered to ``Replicate`` on every mesh dim, ``fn`` run on
-    the local (whole) tensors by ``local_map``, each of the ``n_out``
-    tensors it returns (one, or a tuple) replicated. Without a DTensor
-    argument, ``fn(*args)`` itself. For what has no DTensor strategy and
-    moves few bytes (the MoE's routing, dispatch and combine): every rank
-    computes the same values, so the gradients are whole too."""
-    from torch.distributed.tensor import Replicate
-    from torch.distributed.tensor.experimental import local_map
-    meshes = [a.device_mesh for a in args if _is_dtensor(a)]
-    if not meshes:
+def by_groups(fn, dims: list, args: tuple, in_dims: tuple,
+              out_dims: tuple):
+    """``fn(*args)`` for a computation independent across groups of rows
+    (the MoE's routing, dispatch and combine), on DTensors under
+    ``local_map``: each rank runs ``fn`` on its own groups. ``in_dims[i]``
+    is the group dim of ``args[i]`` (None: it has none, or it is not a
+    tensor), ``out_dims`` the same for each output; over the mesh dims
+    ``dims`` each is split on its group dim, and on every other mesh dim
+    it is whole (gathered). An input whole where the outputs are split
+    gets a partial-sum gradient. With ``dims`` empty every rank computes
+    the whole values. Without a DTensor argument, ``fn(*args)`` itself."""
+    if not any(is_dtensor(a) for a in args):
         return fn(*args)
-    mesh = meshes[0]
-    rep = [Replicate()] * mesh.ndim
-    args = [_no_partial(a).redistribute(mesh, rep) if _is_dtensor(a) else a
-            for a in args]
-    in_pl = tuple(rep if _is_dtensor(a) else None for a in args)
-    return local_map(fn, out_placements=rep if n_out == 1 else (rep,) * n_out,
-                     in_placements=in_pl, device_mesh=mesh)(*args)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = next(a.device_mesh for a in args if is_dtensor(a))
+
+    def pl(d):
+        return [Shard(d) if d is not None and i in dims else Replicate()
+                for i in range(mesh.ndim)]
+    tensor = [isinstance(a, torch.Tensor) for a in args]
+    in_pl = tuple(pl(d) if t else None for d, t in zip(in_dims, tensor))
+    out_pl = [pl(d) for d in out_dims]
+    grad_pl = tuple(_grad_placements(p, out_pl[0]) if p else None
+                    for p in in_pl)
+    args = [_no_partial(_on_mesh(a, mesh)) if t else a
+            for a, t in zip(args, tensor)]
+    return local_map(
+        fn, out_placements=out_pl[0] if len(out_pl) == 1 else tuple(out_pl),
+        in_placements=in_pl, in_grad_placements=grad_pl, device_mesh=mesh,
+        redistribute_inputs=True)(*args)
 
 
 def by_rows_and_heads(fn, args: tuple, dims: tuple, out_dims: tuple):
@@ -370,11 +376,11 @@ def by_rows_and_heads(fn, args: tuple, dims: tuple, out_dims: tuple):
     other is gathered whole. An input whole where the outputs are split
     gets a partial-sum gradient. Without a DTensor argument,
     ``fn(*args)`` itself."""
-    if not any(_is_dtensor(a) for a in args):
+    if not any(is_dtensor(a) for a in args):
         return fn(*args)
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
-    mesh = next(a.device_mesh for a in args if _is_dtensor(a))
+    mesh = next(a.device_mesh for a in args if is_dtensor(a))
     lead_b, lead_h = dims[0]
     role = [("b" if p == Shard(lead_b) else "h" if p == Shard(lead_h)
              else None) for p in _on_mesh(args[0], mesh).placements]
@@ -460,7 +466,7 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     bf16 product writes f32 directly (``out_dtype``) rather than widening
     ``b``, and its backward is ``_MatmulF32``'s. DTensors go through
     ``_sharded_matmul`` (``out_dtype`` has no DTensor strategy)."""
-    if _is_dtensor(a) or _is_dtensor(b):
+    if is_dtensor(a) or is_dtensor(b):
         return _sharded_matmul(a, b)
     return _matmul_local(a, b)
 
@@ -471,7 +477,7 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
     int. With ``mask``, the mean over the positions it marks (at least
     one). DTensor logits split on the vocabulary take the vocab-parallel
     form (``_vocab_parallel_nll``): no rank gathers the whole vocabulary."""
-    if _is_dtensor(logits) and _vocab_dims(logits):
+    if is_dtensor(logits) and _vocab_dims(logits):
         nll = _vocab_parallel_nll(logits, labels)
     else:
         lg = logits.float()
@@ -700,25 +706,54 @@ def moe_block(x, params, *, n_experts: int, top_k: int,
     x's dtype once. Every expert's weights are read whatever the routing
     (the reference's [E, cap] layout).
 
-    On DTensors the routing, dispatch and combine run on every rank over
-    the whole batch (``replicated``: a group's slots count every token of
-    it), and the expert products are split as the rules place the
-    ``[E, G*cap, D]`` rows: ``expert`` is dim 0 here, where the
-    reference's ``[G, E, cap, D]`` has it at dim 1."""
+    On DTensors the groups stay split over the batch's mesh dims, as the
+    reference keeps its ``[G, E, cap, D]`` dispatch at ``("batch",
+    "expert", None, None)``: where those ranks split the batch rows and
+    the G groups evenly (``_moe_group_dims``), each rank routes,
+    dispatches and combines its own groups (``by_groups``; a group's
+    slots count only its own tokens), and the ``[E, G*cap, D]`` rows,
+    group-major, are split on dim 1 there. Else (a decode step's or a
+    short prefill's single group) every rank routes the whole batch,
+    which is then a few tokens. ``expert`` is dim 0 here, where the
+    reference has it at dim 1, so the expert products are split over
+    experts and groups at once."""
     B, S, D = x.shape
-    xe, row, w = replicated(functools.partial(
+    G = moe_capacity(B * S, top_k, n_experts, capacity_factor,
+                     group_size)[0]
+    dims = _moe_group_dims(x, G)
+    groups = "batch" if dims else None
+    xe, row, w = by_groups(functools.partial(
         _moe_dispatch, n_experts=n_experts, top_k=top_k,
-        capacity_factor=capacity_factor, group_size=group_size), 3,
-        x, params["router"])
-    xe = shard_activation(xe, ("expert", None, None))
+        capacity_factor=capacity_factor, group_size=group_size), dims,
+        (x, params["router"]), (0, None), (1, 0, 0))
+    xe = shard_activation(xe, ("expert", groups, None))
     h = matmul_f32(xe, params["wi_gate"].to(x.dtype))
     u = matmul_f32(xe, params["wi_up"].to(x.dtype))
-    h = shard_activation(h, ("expert", None, "mlp"))
-    u = shard_activation(u, ("expert", None, "mlp"))
+    h = shard_activation(h, ("expert", groups, "mlp"))
+    u = shard_activation(u, ("expert", groups, "mlp"))
     h = (torch.nn.functional.silu(h) * u).to(x.dtype)
     ye = torch.bmm(h, params["wo"].to(x.dtype))
-    ye = shard_activation(ye, ("expert", None, None))
-    return replicated(_moe_combine, 1, ye, row, w).reshape(B, S, D)
+    ye = shard_activation(ye, ("expert", groups, None))
+    return by_groups(_moe_combine, dims, (ye, row, w), (1, 0, 0),
+                     (0,)).reshape(B, S, D)
+
+
+def _moe_group_dims(x, n_groups: int) -> list:
+    """The mesh dims over which a step's MoE splits its ``n_groups``
+    groups: inside a context, those the rules put the batch on (of more
+    than one rank), when their ranks split both ``x``'s rows and the
+    groups evenly. Each rank's rows are then whole groups, since the
+    B*S tokens are group-major, and each rank's own tokens give its
+    groups' capacity exactly as the whole batch does. Else none."""
+    ctx = current()
+    if ctx is None or not is_dtensor(x):
+        return []
+    mesh, rules = ctx
+    axes = rules.mesh_axes_for("batch")
+    dims = [i for i, name in enumerate(mesh.mesh_dim_names)
+            if name in axes and mesh.size(i) > 1]
+    n = math.prod(mesh.size(i) for i in dims)
+    return dims if dims and x.shape[0] % n == 0 and n_groups % n == 0 else []
 
 
 def _moe_dispatch(x, router, *, n_experts, top_k, capacity_factor,

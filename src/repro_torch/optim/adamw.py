@@ -13,6 +13,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.models.common import tree_leaves, tree_map, tree_unflatten
+from repro_torch.sharding.ctx import to_local
 
 
 @dataclass(frozen=True)
@@ -34,12 +35,6 @@ def adamw_init(params):
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def _local(x):
-    """A DTensor's local shard; a plain tensor as it is."""
-    from torch.distributed.tensor import DTensor
-    return x.to_local() if isinstance(x, DTensor) else x
-
-
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in f32. Over DTensor
     leaves (split or replicated, as a step places its gradients; not
@@ -58,7 +53,7 @@ def global_norm(tree) -> torch.Tensor:
     for leaf in leaves:
         dims = tuple(i for i, p in enumerate(getattr(leaf, "placements", ()))
                      if p.is_shard())
-        sq = torch.sum(torch.square(_local(leaf).float()))
+        sq = torch.sum(torch.square(to_local(leaf).float()))
         sums[dims] = sums[dims] + sq if dims in sums else sq
     total = None
     for dims, s in sorted(sums.items()):
@@ -77,8 +72,8 @@ def adamw_step(cfg: AdamWConfig, params, grads, state, lr_scale=1.0):
     one device, and every new leaf keeps its param's placements."""
     from torch.distributed.tensor import DTensor
     gnorm = global_norm(grads)
-    clip = torch.clamp(cfg.grad_clip / (_local(gnorm) + 1e-9), max=1.0)
-    step = _local(state["step"]) + 1
+    clip = torch.clamp(cfg.grad_clip / (to_local(gnorm) + 1e-9), max=1.0)
+    step = to_local(state["step"]) + 1
     b1c = 1.0 - cfg.b1 ** step.float()
     b2c = 1.0 - cfg.b2 ** step.float()
     lr = cfg.lr * lr_scale
@@ -108,7 +103,7 @@ def adamw_step(cfg: AdamWConfig, params, grads, state, lr_scale=1.0):
             raise ValueError(f"AdamW over DTensors needs each gradient and "
                              f"moment placed as its param: {p.placements}, "
                              f"{g.placements}, {m.placements}, {v.placements}")
-        new = upd(_local(p), _local(g), _local(m), _local(v))
+        new = upd(to_local(p), to_local(g), to_local(m), to_local(v))
         flat.append(tuple(placed(p, t) for t in new))
     new_p, new_m, new_v = (tree_unflatten(params, [t[i] for t in flat])
                            for i in range(3))

@@ -60,6 +60,23 @@ def shard_activation(x, axes: tuple):
     return x.redistribute(mesh, want)
 
 
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a ``DTensor`` (a leaf of a step run over a mesh)."""
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def to_local(x):
+    """A DTensor's local shard; anything else as it is."""
+    return x.to_local() if is_dtensor(x) else x
+
+
+def full_value(x):
+    """A DTensor's full value on every rank (every rank joins the
+    gathers), as a plain tensor; anything else as it is."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
 def place_tree(tree, axes_tree):
     """Inside a context, ``tree`` (plain tensors every rank holds whole,
     such as a prefill's empty caches) placed on the mesh by the rules for

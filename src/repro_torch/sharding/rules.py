@@ -221,6 +221,18 @@ def full_tree(tree):
     """``tree`` with each ``DTensor`` leaf replaced by a plain tensor of
     its full value (every rank joins the gathers); other leaves as they
     are."""
-    from torch.distributed.tensor import DTensor
-    return MC.tree_unflatten(tree, [t.full_tensor() if isinstance(t, DTensor)
-                                 else t for t in MC.tree_leaves(tree)])
+    from .ctx import full_value
+    return MC.tree_unflatten(tree, [full_value(t)
+                                 for t in MC.tree_leaves(tree)])
+
+
+def local_bytes(tree) -> int:
+    """Bytes of the local shards of ``tree``'s tensor leaves (a plain
+    tensor whole); a host int (a cache's length) as the reference's int32
+    scalar, 4 B, as ``Cell.arg_local_bytes`` counts it."""
+    from .ctx import to_local
+    n = 0
+    for t in MC.tree_leaves(tree):
+        t = to_local(t)
+        n += t.numel() * t.element_size() if hasattr(t, "element_size") else 4
+    return n

@@ -10,6 +10,7 @@ hung collective fails its test instead of the suite.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import subprocess
 import sys
@@ -36,16 +37,22 @@ STEP_CASES = (
     ("llama_1x2", "llama3.2-1b", (1, 2), "default", (12, 4)),
     ("llama_1x2_sp", "llama3.2-1b", (1, 2), "sp", None),
     ("deepseek_1x2", "deepseek-v2-lite-16b", (1, 2), "default", (12, 2)),
+    ("deepseek_2x1", "deepseek-v2-lite-16b", (2, 1), "default", None),
     ("internvl_2x1", "internvl2-26b", (2, 1), "default", None),
 )
-# the other families, held to the one-device port: (1, 2) under
-# DEFAULT_RULES, a train step, a 12-token prefill and 2 decode steps
+# the other families: (1, 2) under DEFAULT_RULES, a train step, a
+# 12-token prefill and 2 decode steps
 FAMILY_CASES = (
     ("zamba2_1x2", "zamba2-2.7b", (1, 2), "default", (12, 2)),
     ("rwkv6_1x2", "rwkv6-7b", (1, 2), "default", (12, 2)),
     ("whisper_1x2", "whisper-tiny", (1, 2), "default", (12, 2)),
 )
 STEP_SEED = 2
+# the MoE block alone on (world, 1), the deepseek-v2-lite smoke's
+# widths: batch x seq tokens, and group sizes that make 2 groups of 128
+# (on 2 ranks each routes its own; the expert most tokens choose drops
+# all but 40 a group) and 1 group (each rank routes the whole batch)
+MOE_BATCH, MOE_SEQ, MOE_GROUP_SIZES = 4, 64, (128, 256)
 # the sharded supervisor: steps, a checkpoint every 4, a failure at 6
 SUP_STEPS, SUP_SAVE_EVERY, SUP_FAIL_AT = 10, 4, (6,)
 
@@ -286,6 +293,53 @@ def port_reference(arch_id: str, serve) -> dict:
     return out
 
 
+def jax_reference(arch_id: str, serve) -> dict:
+    """The JAX reference's results of a STEP_CASES / FAMILY_CASES case,
+    under ``port_reference``'s keys, from the same numpy params, AdamW
+    state and inputs: its train cell's step on the host mesh, the
+    gradients of its model's loss on the step's batch (``jax.grad``), and
+    with ``serve`` its model's prefill (to the port's prefill cell's
+    length) and decode steps. Only the tests import JAX; a rank never
+    calls this."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_arch as jax_get_arch
+    from repro.launch import steps as JS
+    from repro.launch.mesh import make_host_mesh
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps
+    jcell = JS.build_cell(jax_get_arch(arch_id), "train_4k", make_host_mesh(),
+                          smoke=True, donate=False)
+    jm = jcell.model
+    model = get_arch(arch_id).model(smoke=True)
+    npp = np_params(model, STEP_SEED)
+    inp = step_inputs(model, arch_id)
+    jp = jax.tree.map(jnp.asarray, npp)
+    batch = {k: jnp.asarray(v) for k, v in inp["batch"].items()}
+    p2, o2, met = jcell.jitted(jp, jax.tree.map(jnp.asarray,
+                                                carried_opt(npp)), batch)
+    grads = jax.jit(jax.grad(jm.loss))(jp, batch)
+    out = keyed(jax.tree.map(np.asarray, {"params": p2, "opt": o2,
+                                          "grad": grads}))
+    out["loss"], out["grad_norm"] = float(met["loss"]), float(met["grad_norm"])
+    if serve is not None:
+        # the model's own prefill and decode_step, which the serving cells
+        # wrap: under this JAX the prefill cell's explicit host-mesh axes
+        # refuse its unannotated empty cache's update on the CPU
+        max_len = steps.build_cell(get_arch(arch_id), "prefill_32k",
+                                   device="meta", smoke=True).abstract_args[
+                                       1]["tokens"].shape[1]
+        lg, cache = jax.jit(lambda p_, b: jm.prefill(p_, b, max_len))(
+            jp, serve_batch(inp, serve[0], jnp.asarray))
+        out["/prefill_logits"] = np.asarray(lg)
+        decode = jax.jit(jm.decode_step)
+        for i in range(serve[1]):
+            lg, cache = decode(jp, cache, jnp.asarray(inp["decode"][i]))
+            out[f"/decode_logits_{i}"] = np.asarray(lg)
+        out.update(keyed(jax.tree.map(np.asarray, cache), "/cache"))
+    return out
+
+
 def rel_l2(a, b) -> float:
     return float(np.linalg.norm((a - b).ravel())
                  / max(np.linalg.norm(b.ravel()), 1e-30))
@@ -299,9 +353,10 @@ LOSS_RTOL, GRAD_REL, TOL = 1e-6, 1e-5, dict(rtol=1e-5, atol=1e-5)
 def check_train(got: dict, tag: str, wants: list,
                 grad_rel: float = GRAD_REL) -> None:
     """A rank's train results for ``tag`` against each of ``wants``
-    (``port_reference``-like dicts; the gradients against the first,
-    which must carry them, within ``grad_rel``): the loss, grad_norm,
-    every param and AdamW leaf, the step count, every gradient leaf."""
+    (``port_reference``-like dicts; the first must carry the gradients,
+    and every other that does is held to them too, each leaf within
+    ``grad_rel`` relative L2): the loss, grad_norm, every param and AdamW
+    leaf, the step count, every gradient leaf."""
     for want in wants:
         np.testing.assert_allclose(got[f"{tag}_loss"], want["loss"],
                                    rtol=LOSS_RTOL)
@@ -317,8 +372,12 @@ def check_train(got: dict, tag: str, wants: list,
     assert int(got[f"{tag}/opt/step"]) == 11
     grads = [k for k in wants[0] if k.startswith("/grad/")]
     assert len(grads) == len([k for k in keys if k.startswith("/params/")])
-    for key in grads:
-        assert rel_l2(got[tag + key], wants[0][key]) <= grad_rel, key
+    for want in wants:
+        if any(k.startswith("/grad/") for k in want):
+            assert sorted(k for k in want if k.startswith("/grad/")) == \
+                sorted(grads)
+            for key in grads:
+                assert rel_l2(got[tag + key], want[key]) <= grad_rel, key
 
 
 def check_serve(got: dict, tag: str, serve, wants: list) -> None:
@@ -359,21 +418,6 @@ def collect(started: list) -> dict:
     return merged
 
 
-def _leaf_bytes(tree) -> int:
-    """Bytes of the local shards of a placed tree; a host int (a cache's
-    length) as the reference's int32 scalar."""
-    import torch
-    from repro_torch.models.common import tree_leaves
-    n = 0
-    for t in tree_leaves(tree):
-        if isinstance(t, torch.Tensor):
-            t = t.to_local() if hasattr(t, "to_local") else t
-            n += t.numel() * t.element_size()
-        else:
-            n += 4
-    return n
-
-
 def _placed_as_specs(tree, spec_tree, mesh) -> bool:
     """Whether every tensor leaf of ``tree`` is a DTensor placed as
     ``placements(mesh, spec)`` of its spec in ``spec_tree``."""
@@ -399,7 +443,8 @@ def _step_cases(cases, out):
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.steps import build_cell, loss_and_grads, sharded
     from repro_torch.models import common as C
-    from repro_torch.sharding.rules import DEFAULT_RULES, SP_RULES, full_tree
+    from repro_torch.sharding.rules import (DEFAULT_RULES, SP_RULES, full_tree,
+                                            local_bytes)
     C.set_compute_dtype(torch.float32)
     rules_of = {"default": DEFAULT_RULES, "sp": SP_RULES}
     for tag, arch_id, dims, rules_name, serve in cases:
@@ -417,7 +462,7 @@ def _step_cases(cases, out):
         placed = cell.place(args)
         out[f"{tag}_placed_ok"] = all(_placed_as_specs(a, sp, mesh) for a, sp
                                       in zip(placed, cell.arg_specs))
-        out[f"{tag}_local_bytes"] = [_leaf_bytes(a) for a in placed]
+        out[f"{tag}_local_bytes"] = [local_bytes(a) for a in placed]
         out[f"{tag}_cell_bytes"] = list(cell.arg_local_bytes().values())
         with sharded(mesh, rules):
             loss, grads = loss_and_grads(m, placed[0], placed[2])
@@ -448,7 +493,7 @@ def _step_cases(cases, out):
         out[f"{tag}_decode_placed_ok"] = all(
             _placed_as_specs(a, sp, mesh)
             for a, sp in zip(dplaced, dcell.arg_specs))
-        out[f"{tag}_decode_local_bytes"] = [_leaf_bytes(a) for a in dplaced]
+        out[f"{tag}_decode_local_bytes"] = [local_bytes(a) for a in dplaced]
         out[f"{tag}_decode_cell_bytes"] = list(
             dcell.arg_local_bytes().values())
         del dplaced, bf16
@@ -465,15 +510,89 @@ def _step_cases(cases, out):
             out[k] = v
 
 
+def _moe_groups(out):
+    """``moe_block`` at the deepseek-v2-lite smoke's widths on a (world,
+    1) mesh inside a step's context, its input split on the batch (f32):
+    for each of MOE_GROUP_SIZES, the rows each dispatch call saw, the
+    output and the gradients of the input and of every weight (full
+    values), the same of the one-device block, and how many (token,
+    choice) pairs its groups drop."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import sharded
+    from repro_torch.models import common as C
+    from repro_torch.sharding.rules import (DEFAULT_RULES, distribute_tree,
+                                            full_tree, placements,
+                                            tree_specs)
+    world = int(os.environ["RANKS_WORLD"])
+    mesh = make_mesh((world, 1), ("data", "model"), device="cpu")
+    cfg = get_arch("deepseek-v2-lite-16b").model(smoke=True).cfg
+    specs = C.moe_param_specs(cfg.d_model, cfg.moe_d_ff, cfg.n_experts)
+    rng = np.random.default_rng(STEP_SEED + 5)
+    npp = C.tree_map(lambda sp: (rng.normal(size=sp.shape) / np.sqrt(
+        sp.shape[-2])).astype(np.float32), specs)
+    # a router that favours expert 0 for every token, so that its slots
+    # overflow and the groups drop pairs
+    npp["router"][:, 0] += 0.1
+    x = (1 + rng.normal(size=(MOE_BATCH, MOE_SEQ, cfg.d_model))).astype(
+        np.float32)
+    cot = rng.normal(size=x.shape).astype(np.float32)
+    seen = []
+    dispatch = C._moe_dispatch
+    C._moe_dispatch = lambda xs, router, **kw: (
+        seen.append(xs.shape[0]), dispatch(xs, router, **kw))[1]
+    w_specs = tree_specs(mesh, DEFAULT_RULES,
+                         C.tree_map(lambda sp: sp.axes, specs), specs)
+    try:
+        for gs in MOE_GROUP_SIZES:
+            def run(on_mesh):
+                p = C.params_from_numpy(npp, "cpu")
+                xt = torch.from_numpy(x)
+                if on_mesh:
+                    p = distribute_tree(p, mesh, w_specs)
+                    xt = distribute_tensor(xt, mesh, placements(mesh, (
+                        "data",)))
+                leaves = [t.detach().requires_grad_(True)
+                          for t in [xt] + C.tree_leaves(p)]
+                ctx = (sharded(mesh, DEFAULT_RULES) if on_mesh
+                       else contextlib.nullcontext())
+                with ctx:
+                    w = C.gather_weights(C.tree_unflatten(p, leaves[1:]))
+                    y = C.moe_block(leaves[0], w, n_experts=cfg.n_experts,
+                                    top_k=cfg.top_k, group_size=gs)
+                    grads = torch.autograd.grad(
+                        (y * torch.from_numpy(cot)).sum(), leaves)
+                return full_tree([y.detach()] + list(grads))
+            seen.clear()
+            got = run(True)
+            out[f"moe_{gs}_rows"] = np.array(seen)
+            want = run(False)
+            xt = torch.from_numpy(x).reshape(-1, cfg.d_model)
+            _, gidx = C.moe_route(xt, torch.from_numpy(npp["router"]),
+                                  cfg.top_k)
+            g, _, cap = C.moe_capacity(len(xt), cfg.top_k, cfg.n_experts,
+                                       group_size=gs)
+            out[f"moe_{gs}_dropped"] = int(
+                (~C.moe_slots(gidx, g, cfg.n_experts, cap)[1]).sum())
+            for i, (g, w) in enumerate(zip(got, want)):
+                out[f"moe_{gs}_got_{i}"] = g.numpy()
+                out[f"moe_{gs}_want_{i}"] = w.numpy()
+    finally:
+        C._moe_dispatch = dispatch
+
+
 def _steps(rank, world, out):
     """The llama cases of STEP_CASES."""
     _step_cases([c for c in STEP_CASES if c[1] == "llama3.2-1b"], out)
 
 
 def _steps_moe(rank, world, out):
-    """The MoE/MLA and VLM cases of STEP_CASES and ``matmul_f32``'s
-    placements."""
+    """The MoE/MLA and VLM cases of STEP_CASES, ``moe_block`` on its own
+    groups, and ``matmul_f32``'s placements."""
     _step_cases([c for c in STEP_CASES if c[1] != "llama3.2-1b"], out)
+    _moe_groups(out)
     _products(out)
 
 
@@ -549,6 +668,7 @@ def main(argv) -> None:
     from repro_torch.launch.mesh import start_group
     start_group(directory, rank, world, device="cpu", timeout_s=60.0)
     os.environ["RANKS_DIR"] = directory
+    os.environ["RANKS_WORLD"] = str(world)
     out: dict = {}
     try:
         {"service": _service, "placements": _placements, "steps": _steps,

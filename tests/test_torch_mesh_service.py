@@ -275,3 +275,68 @@ def test_chip_smoke_sharded_phase_on_one_gloo_rank(smoke_phase, capsys):
     assert out.count("'params': 0.0, 'm': 0.0, 'v': 0.0, 'step': 0.0") == 2
     assert out.count("{'prefill': 0.0, 'decode': 0.0, 'cache': 0.0}") == 2
     assert not torch.distributed.is_initialized()
+
+
+@pytest.mark.parametrize("a,b,want", [
+    ([1.0, 2.0], [1.0, 2.0], 0.0),
+    ([1.0, 2.0], [1.0, 2.5], 0.5),
+    ([1.0, 2.0], [math.nan, 2.0], math.nan),
+    ([1.0, 2.0], [1.5, math.nan], math.nan),
+    ([math.nan, 2.0], [math.nan, 2.0], math.nan),
+    ([1.0, math.inf], [1.0, math.inf], 0.0),
+    ([1.0, 2.0], [1.0, math.inf], math.inf)])
+def test_chip_smoke_tree_max_diff_keeps_a_nan(a, b, want):
+    """Phase 15's difference of two trees (a leaf a tensor each): a nan in
+    either tree is a nan difference wherever it stands, even after a
+    finite difference or in both trees at one place, and a nan
+    difference is a fault; equal trees differ by 0.0, no fault."""
+    cs = _chip_smoke()
+    got = cs.tree_max_diff([torch.tensor(x) for x in a],
+                           [torch.tensor(x) for x in b])
+    np.testing.assert_equal(got, want)
+    assert bool(cs.sharded_faults({"t": got})) == (want != 0.0)
+    assert math.isnan(cs.worse(math.nan, 1.0))
+    assert math.isnan(cs.worse(1.0, math.nan))
+
+
+@pytest.mark.parametrize("wrong,says", [
+    ("loss", "'loss differs by nan'"), ("params", "'params differs by")])
+def test_chip_smoke_sharded_phase_fails_on_a_difference(
+        smoke_phase, capsys, monkeypatch, wrong, says):
+    """A sharded train step whose loss comes back nan, or whose first
+    param leaf is 2**-10 off, fails phase 15 by its own check
+    (the one-device step's loss is finite), and the group is still
+    destroyed."""
+    cs, svc, q, want, train, counters, _ = smoke_phase
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models.common import tree_leaves, tree_unflatten
+    make = S.make_train_step
+
+    def planted(model, cfg, *, mesh=None, **kw):
+        step = make(model, cfg, mesh=mesh, **kw)
+        if mesh is None:
+            return step
+
+        def off(*args):
+            p, o, m = step(*args)
+            if wrong == "loss":
+                return p, o, dict(m, loss=m["loss"] * math.nan)
+            leaves = tree_leaves(p)
+            return tree_unflatten(p, [leaves[0] + 2.0 ** -10]
+                                  + leaves[1:]), o, m
+        return off
+    monkeypatch.setattr(S, "make_train_step", planted)
+    smoke_bytes = S.build_cell(
+        get_arch(cs.LM_ARCH), "train_4k", device="meta", smoke=True,
+        mesh=MeshShape((1, 1), ("data", "model"))).arg_local_bytes()
+    with pytest.raises(SystemExit):
+        cs.mesh_phase(svc.bank, q, want, train, counters, device="cpu",
+                      card="cpu", then=lambda mesh, census: cs.sharded_phase(
+                          mesh, {k: smoke_bytes[k] for k in (
+                              "params", "opt")}, device="cpu", smoke=True))
+    err = capsys.readouterr().err
+    assert f"sharded {cs.LM_ARCH} train step != the one-device step" in err
+    assert says in err
+    assert not torch.distributed.is_initialized()

@@ -5,19 +5,20 @@ sharded over a ``DeviceMesh`` (``launch/steps.py`` with a mesh,
 Two gloo ranks (``tests/_torch_ranks.py``: the ``steps`` job for the
 smoke llama, ``steps_moe`` for the deepseek-v2-lite and internvl2
 smokes, ``supervisor`` for a sharded trainer, all three started at once)
-run
-``build_cell(..., mesh=)`` steps from numpy weights at f32: the llama's
-train step on (2, 1) and (1, 2) under ``DEFAULT_RULES`` and on (1, 2)
-under ``SP_RULES``, its prefill and 4 decode steps on (1, 2); the
+run ``build_cell(..., mesh=)`` steps from numpy weights at f32: the
+llama's train step on (2, 1) and (1, 2) under ``DEFAULT_RULES`` and on
+(1, 2) under ``SP_RULES``, its prefill and 4 decode steps on (1, 2); the
 deepseek's (experts over ``model``) train step, prefill and 2 decode
-steps on (1, 2); internvl2's train step on (2, 1). Meanwhile this process
-runs the one-device port's cells and the JAX reference's
-``build_cell(..., make_host_mesh())`` steps on the same inputs.
+steps on (1, 2) and its train step on (2, 1); internvl2's train step on
+(2, 1); ``moe_block`` alone on (2, 1), its groups split over the data
+ranks. Meanwhile this process runs the one-device port's cells and the
+JAX reference (``_torch_ranks.jax_reference``: its
+``build_cell(..., make_host_mesh())`` train step, ``jax.grad`` of its
+loss, its model's prefill and decode steps) on the same inputs.
 
 Tolerances, as ``test_torch_train.py``: the loss within 1e-6 relative;
-gradient leaves within 1e-5 relative L2 (against the one-device port:
-the reference's step returns none); params, AdamW moments, logits and
-caches within 1e-5 (absolute and relative): the same f32 arithmetic
+gradient leaves within 1e-5 relative L2; params, AdamW moments, logits
+and caches within 1e-5 (absolute and relative): the same f32 arithmetic
 summed in another order (a product over a split dim sums its partial
 sums). Placements, byte counts, step counts and the resumed losses:
 exact."""
@@ -28,13 +29,8 @@ torch = pytest.importorskip("torch")
 # one intra-op thread: these tests share the machine with parallel workers
 torch.set_num_threads(1)
 
-import jax  # noqa: E402
-import jax.numpy as jnp  # noqa: E402
 
 import _torch_ranks as R  # noqa: E402
-from repro.configs import get_arch as jax_get_arch  # noqa: E402
-from repro.launch import steps as JS  # noqa: E402
-from repro.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.launch import steps, train  # noqa: E402
 from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
@@ -73,52 +69,22 @@ def _batch(inp, lib):
     return {k: lib(v) for k, v in inp["batch"].items()}
 
 
-def _jax_ref(arch_id, serve):
-    """The JAX reference's train cell on the host mesh, and its model's
-    prefill (to the prefill cell's length) and decode steps, from the
-    same numpy params, AdamW state and inputs, as {key: numpy}."""
-    m, npp, opt, inp = _inputs(arch_id)
-    jarch, host = jax_get_arch(arch_id), make_host_mesh()
-    jcell = JS.build_cell(jarch, "train_4k", host, smoke=True, donate=False)
-    jp = jax.tree.map(jnp.asarray, npp)
-    p2, o2, met = jcell.jitted(jp, jax.tree.map(jnp.asarray, opt),
-                               _batch(inp, jnp.asarray))
-    out = R.keyed(jax.tree.map(np.asarray, {"params": p2, "opt": o2}))
-    out["loss"], out["grad_norm"] = float(met["loss"]), float(met["grad_norm"])
-    if serve is not None:
-        # the model's own prefill and decode_step, which the serving cells
-        # wrap: under this JAX the prefill cell's explicit host-mesh axes
-        # refuse its unannotated empty cache's update on the CPU
-        jm = jcell.model
-        max_len = steps.build_cell(get_arch(arch_id), "prefill_32k",
-                                   device="meta", smoke=True).abstract_args[
-                                       1]["tokens"].shape[1]
-        lg, cache = jax.jit(lambda p_, t: jm.prefill(p_, {"tokens": t},
-                                                     max_len))(
-            jp, jnp.asarray(inp["prompt"][:, :serve[0]]))
-        out["/prefill_logits"] = np.asarray(lg)
-        decode = jax.jit(jm.decode_step)
-        for i in range(serve[1]):
-            lg, cache = decode(jp, cache, jnp.asarray(inp["decode"][i]))
-            out[f"/decode_logits_{i}"] = np.asarray(lg)
-        out.update(R.keyed(jax.tree.map(np.asarray, cache), "/cache"))
-    return out
-
-
 @pytest.fixture(scope="module")
 def refs(started):
-    """{arch: (one-device port, JAX reference)}, computed while the ranks
-    run (a train case's reference does not depend on its mesh)."""
-    out, was = {}, C.COMPUTE_DTYPE
+    """{arch: (one-device port, JAX reference, serve)}, computed once an
+    arch while the ranks run (a train case's references do not depend on
+    its mesh; an arch's serve steps are those of its case that has
+    some)."""
+    serve_of: dict = {}
+    for tag, arch_id, *_, serve in R.STEP_CASES:
+        serve_of[arch_id] = serve_of.get(arch_id) or serve
+    was = C.COMPUTE_DTYPE
     C.set_compute_dtype(torch.float32)
     try:
-        for tag, arch_id, *_, serve in R.STEP_CASES:
-            serve = serve or out.get(arch_id, (None, None, None))[2]
-            out[arch_id] = (R.port_reference(arch_id, serve),
-                            _jax_ref(arch_id, serve), serve)
+        return {a: (R.port_reference(a, s), R.jax_reference(a, s), s)
+                for a, s in serve_of.items()}
     finally:
         C.set_compute_dtype(was)
-    return out
 
 
 @pytest.fixture(scope="module")
@@ -132,7 +98,7 @@ def test_sharded_train_step_matches_one_device_and_the_reference(
         tag, ranks, refs):
     """The loss, grad_norm, every param and AdamW leaf after one step, and
     every gradient leaf of the step's batch, against the one-device port
-    and (but the gradients) the JAX reference's step."""
+    and the JAX reference (its train step; ``jax.grad`` of its loss)."""
     port, ref, _ = refs[CASES[tag][1]]
     R.check_train(ranks, tag, [port, ref])
 
@@ -177,6 +143,26 @@ def test_sharded_supervisor_resumes_bit_for_bit(ranks):
         state, loss = step_fn(state, s)
         one.append(loss)
     np.testing.assert_allclose(clean, one, rtol=1e-5)
+
+
+def test_moe_block_routes_each_ranks_own_groups(ranks):
+    """``moe_block`` on (2, 1) inside a step's context: with 2 groups each
+    data rank routes, dispatches and combines its own (its 2 batch rows;
+    the reference keeps its groups split over the batch), with 1 group
+    every rank routes the whole batch (4 rows). Either way the output and
+    the gradients of the input and of every weight equal the one-device
+    block's, with tokens dropped at an expert's capacity in the first."""
+    split, whole = R.MOE_GROUP_SIZES
+    assert list(ranks[f"moe_{split}_rows"]) == [R.MOE_BATCH // 2]
+    assert list(ranks[f"moe_{whole}_rows"]) == [R.MOE_BATCH]
+    assert ranks[f"moe_{split}_dropped"] > 0
+    for gs in (split, whole):
+        got = [ranks[f"moe_{gs}_got_{i}"] for i in range(6)]
+        want = [ranks[f"moe_{gs}_want_{i}"] for i in range(6)]
+        assert f"moe_{gs}_got_6" not in ranks
+        np.testing.assert_allclose(got[0], want[0], **R.TOL)
+        for i in range(1, 6):
+            assert R.rel_l2(got[i], want[i]) <= R.GRAD_REL, (gs, i)
 
 
 def test_matmul_f32_on_dtensors_places_its_product(ranks):
