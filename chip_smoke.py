@@ -42,7 +42,9 @@ Phases, one line each; any failure exits non-zero and prints no result:
              ``benchmarks/filter_service.py`` builds it: 1,000,000
              positives, lambda = 8, five filters (Bloom 1%, Xor alpha = 8,
              ExactBloomier, ChainedFilterAnd, an 18-layer
-             ChainedFilterCascade) packed into one ~28.5 MB bank, and
+             ChainedFilterCascade; built on the host in five processes
+             started after phase 2, beside phases 3-6, by
+             ``start_filter_builds``) packed into one ~28.5 MB bank, and
              ``FilterService.probe`` of 4,000,000 queries (one launch each
              of bloom_probe, xor_probe, exact_probe, chained_probe and
              cascade_probe, each kernel's path as its ``onchip_reason``
@@ -200,6 +202,17 @@ Phases, one line each; any failure exits non-zero and prints no result:
              census's (1, 1) row; host ms of a train step and a decode
              token on the mesh and on one device in turns; one decode
              step's device operations on each; no kernel launched
+16. trace    the step trace (``launch/op_trace.py``) beside the card's
+             real step, on the host in a subprocess started after phase
+             2 and run beside phases 3-15 (``start_traces``; a fake
+             process group cannot share phase 14's process): llama3.2-1b
+             FULL at
+             phase 11's train shape (2 x 4,096) and phase 10's decode (a
+             256-token cache) on (1, 1), and train_4k and decode_32k at
+             16x16 (two cells the grouped-query repair opened); the
+             traced (1, 1) params and AdamW bytes equal to phase 11's
+             allocation, the modelled peak (args + liveness) beside
+             phase 11's measured peak and their ratio; no kernel launched
 
 Then one JSON line of kernel records, the card line and the result line.
 Launch counts are set to 0 just before each path is driven and read just
@@ -210,6 +223,7 @@ Usage: python3 chip_smoke.py
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import functools
 import json
@@ -1711,6 +1725,186 @@ def sharded_phase(mesh, census_bytes: dict, *, device="cuda",
           f"{time.monotonic() - t15:.0f} s | {card}", flush=True)
 
 
+# -- phase 7's filters, built on the host beside phases 3-6 -----------------
+F_BUILDS = ("bloom", "xor", "exact", "chained", "cascade")
+
+
+def build_bank_filter(name: str) -> tuple:
+    """One filter of phase 7's bank (``benchmarks/filter_service.py``'s
+    recipe, phase 7's seeded keys) -> (the filter, its build's host
+    seconds, ``time.monotonic()`` at its end: one clock for every process
+    of the host)."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.core import hashing as H
+    from repro_torch.core.bloom import BloomFilter
+    from repro_torch.core.bloomier import ExactBloomier, XorFilter
+    from repro_torch.core.chained import ChainedFilterAnd, ChainedFilterCascade
+    fkeys = H.random_keys(F_POS * (F_LAMBDA + 1) + F_QUERIES, seed=42)
+    pos, neg = fkeys[:F_POS], fkeys[F_POS:F_POS * (F_LAMBDA + 1)]
+    t = time.monotonic()
+    f = {"bloom": lambda: BloomFilter.build(pos, 0.01, seed=11),
+         "xor": lambda: XorFilter.build(pos, 8, seed=12),
+         "exact": lambda: ExactBloomier.build(pos[:F_POS // 2], neg[:F_POS],
+                                              seed=13),
+         "chained": lambda: ChainedFilterAnd.build(pos, neg, seed=14),
+         "cascade": lambda: ChainedFilterCascade.build(pos, neg, seed=3),
+         }[name]()
+    return f, time.monotonic() - t, time.monotonic()
+
+
+def start_filter_builds() -> tuple:
+    """``build_bank_filter`` of each of F_BUILDS in a process of its own
+    (spawned: no CUDA state is inherited) -> (the pool, {name: future})."""
+    import concurrent.futures
+    import multiprocessing
+    pool = concurrent.futures.ProcessPoolExecutor(
+        len(F_BUILDS), mp_context=multiprocessing.get_context("spawn"))
+    return pool, {n: pool.submit(build_bank_filter, n) for n in F_BUILDS}
+
+
+# -- phase 16: the step trace beside the card's real step -----------------
+# the cells traced in a subprocess of their own (a fake process group and
+# phase 14's NCCL group cannot share one process): llama3.2-1b FULL on
+# (1, 1) at phase 11's train shape and phase 10's decode (one request, a
+# 256-token cache), then its train_4k and decode_32k at 16x16; the
+# subprocess must end within TRACE_LIMIT_S of its start
+TRACE_LIMIT_S = 120
+TRACE_CELLS = (("train_1x1", "train_4k", (1, 1), TRAIN_BATCH, TRAIN_SEQ),
+               ("decode_1x1", "decode_32k", (1, 1), 1, LM_MAX_LEN),
+               ("train_4k_16x16", "train_4k", (16, 16), None, None),
+               ("decode_32k_16x16", "decode_32k", (16, 16), None, None))
+
+
+def resized_cell(cell, batch: int, seq: int):
+    """``cell`` (a train or decode cell) at ``batch`` x ``seq``: its
+    batch's tokens and labels, or its cache (``seq`` long) and tokens,
+    made again with their specs; params and AdamW state as they are."""
+    import torch
+    from repro_torch.configs.base import Shape
+    from repro_torch.launch import steps as S
+    from repro_torch.sharding.rules import DEFAULT_RULES, tree_specs
+    mesh, m = cell.mesh, cell.model
+
+    def tok(b, t):
+        return torch.empty((b, t), dtype=torch.int32, device="meta")
+    if cell.kind == "train":
+        batch_tree = {"tokens": tok(batch, seq), "labels": tok(batch, seq)}
+        args = cell.abstract_args[:2] + (batch_tree,)
+        specs = cell.arg_specs[:2] + (S.batch_specs(mesh, DEFAULT_RULES,
+                                                    batch_tree),)
+    else:
+        cache, tokens = m.cache_specs(batch, seq), tok(batch, 1)
+        args = (cell.abstract_args[0], cache, tokens)
+        specs = (cell.arg_specs[0],
+                 tree_specs(mesh, DEFAULT_RULES, m.cache_axes(), cache),
+                 S.batch_specs(mesh, DEFAULT_RULES, tokens))
+    return replace(cell, abstract_args=args, arg_specs=specs,
+                   shape=Shape(cell.shape_name, cell.kind, seq, batch))
+
+
+def trace_cells() -> list[dict]:
+    """Phase 16's traces (``TRACE_CELLS``), on the host: each cell's
+    step traced over a fake group of its mesh's size (``launch.dryrun.
+    traced_cell``, its (1, 1) cells resized by ``resized_cell``) -> one
+    record a cell: argument bytes by group, the liveness peak, flops and
+    bytes per device, collective bytes by kind, ops, seconds."""
+    from repro_torch.launch import dryrun, hbm_model, op_trace
+    from repro_torch.launch.mesh import MeshShape
+    out = []
+    for tag, shape_name, dims, batch, seq in TRACE_CELLS:
+        mesh = MeshShape(dims, ("data", "model"))
+        wrap = None if batch is None else (
+            lambda c, b=batch, t=seq: resized_cell(c, b, t))
+        cell, tr = dryrun.traced_cell(LM_ARCH, shape_name, mesh, wrap=wrap)
+        out.append({"tag": tag, "shape": shape_name, "mesh": list(dims),
+                    "batch": batch or cell.shape.batch,
+                    "seq": seq or cell.shape.seq,
+                    "arg_bytes": tr.arg_bytes,
+                    "liveness": hbm_model.peak_hbm_bytes(tr),
+                    "top": [list(r) for r in hbm_model.peak_report(tr, 3)],
+                    "flops": tr.flops, "bytes": tr.bytes_accessed,
+                    "collectives": op_trace.collective_summary(tr),
+                    "ops": tr.n_ops, "trace_s": tr.seconds})
+    return out
+
+
+def start_traces() -> subprocess.Popen:
+    """Start ``trace_cells`` in a subprocess (a fake process group cannot
+    share phase 14's process), its output in temporary files; it runs on
+    the host while the card's phases run, and is killed at exit if it
+    has not ended."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(ROOT, "src")] + [p for p in [env.get("PYTHONPATH")]
+                                       if p])
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import json, time, chip_smoke; print(json."
+         "dumps({'cells': chip_smoke.trace_cells(), 't_end': time."
+         "monotonic()}))"],
+        cwd=ROOT, env=env, stdout=out, stderr=err, text=True)
+    proc.files = (out, err)
+    proc.t0 = time.monotonic()
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def trace_phase(proc: subprocess.Popen, train_arg_bytes: dict,
+                train_peak_gb: float, *, card: str = "",
+                t_start: float | None = None) -> list[dict]:
+    """Phase 16: the records of ``start_traces``' subprocess, which must
+    have ended within TRACE_LIMIT_S of its start (by its own end time; a
+    subprocess still running is waited for up to that deadline, then
+    killed; any failure fails the run); the (1, 1) train trace's params
+    and AdamW bytes held to ``train_arg_bytes`` (phase 11's allocation)
+    exactly; its modelled peak (args + liveness) printed beside phase
+    11's measured peak ``train_peak_gb``, with their ratio. ``t_start``:
+    the run's start, to print when the traces ran. -> the records."""
+    t = time.monotonic()
+    try:
+        proc.wait(timeout=max(1.0, TRACE_LIMIT_S - (t - proc.t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        fail(f"the step traces did not end in {TRACE_LIMIT_S} s")
+    waited = time.monotonic() - t
+    out, err = (f.seek(0) or f.read() for f in proc.files)
+    check(proc.returncode == 0,
+          f"the step traces failed (exit {proc.returncode}): {err[-3000:]}")
+    res = json.loads(out.strip().splitlines()[-1])
+    recs, took = res["cells"], res["t_end"] - proc.t0
+    check(took <= TRACE_LIMIT_S,
+          f"the step traces took {took:.1f} s, over {TRACE_LIMIT_S} s")
+    t_start = proc.t0 if t_start is None else t_start
+    for r in recs:
+        coll = r["collectives"]
+        args = sum(r["arg_bytes"].values())
+        print(f"trace: {LM_ARCH} FULL {r['shape']} on {tuple(r['mesh'])} "
+              f"at batch {r['batch']} x seq {r['seq']}: {r['ops']} ops "
+              f"traced in {r['trace_s']:.1f} s, flops/dev {r['flops']:.4g}, "
+              f"bytes/dev {r['bytes']:.4g}, collectives {coll['count']} "
+              f"moving {sum(coll[k] for k in coll if k != 'count')} B "
+              f"({', '.join(f'{k} {v}' for k, v in coll.items() if v and k != 'count')}), "
+              f"args {args} B + liveness {r['liveness']} B = "
+              f"{(args + r['liveness']) / 1e9:.3f} GB; largest live at the "
+              f"peak {[(b, n) for b, n, _ in r['top']]} | {card}", flush=True)
+    one = recs[0]
+    got = {k: one["arg_bytes"][k] for k in ("params", "opt")}
+    check(got == train_arg_bytes,
+          f"traced (1, 1) train args {got} B != phase 11's allocation "
+          f"{train_arg_bytes} B")
+    modelled = (sum(one["arg_bytes"].values()) + one["liveness"]) / 1e9
+    print(f"trace: the (1, 1) train step's params {got['params']} B and "
+          f"AdamW {got['opt']} B == phase 11's allocation; modelled peak "
+          f"(args + liveness) {modelled:.2f} GB beside phase 11's measured "
+          f"peak {train_peak_gb:.2f} GB (max_memory_allocated over its 8 "
+          f"steps): ratio {modelled / train_peak_gb:.3f} | the traces' "
+          f"process ran from {proc.t0 - t_start:.1f} s to "
+          f"{res['t_end'] - t_start:.1f} s of the run ({took:.1f} s, limit "
+          f"{TRACE_LIMIT_S} s), phase 16 waited {waited:.1f} s for it | "
+          f"{card}", flush=True)
+    return recs
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1722,10 +1916,6 @@ def main() -> None:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     try:
         from repro_torch.core import hashing as H, theory
-        from repro_torch.core.bloom import BloomFilter
-        from repro_torch.core.bloomier import ExactBloomier, XorFilter
-        from repro_torch.core.chained import (ChainedFilterAnd,
-                                              ChainedFilterCascade)
         from repro_torch.core.lsm import LsmLevelChained
         from repro_torch.kernels import (_build, bloom_onchip,
                                          bloomier_onchip, common, lsm_window,
@@ -1857,6 +2047,11 @@ def main() -> None:
         for s, log in sorted(_build.build_logs.items()))
     print(f"build: {sorted(libs)} in {time.monotonic() - t0:.1f} s | {regs}",
           flush=True)
+    # the host work of phases 7 and 16, started now beside the card's
+    # phases: phase 7's five filter builds and phase 16's step traces
+    t_fstart = time.monotonic() - t_start
+    f_pool, f_builds = start_filter_builds()
+    traces = start_traces()
 
     # -- 3. kernels vs plain at the edge shapes ------------------------------
     reset_counts()
@@ -2029,31 +2224,24 @@ def main() -> None:
           f"tables, dict replay agrees on {n_agree}/{n_get}", flush=True)
 
     # -- 7. filters: the §5.1-§5.3 serving bank at full width --------------------
+    # the five builds ran in processes of their own beside phases 3-6
+    # (start_filter_builds): the host wait here is what is left of them
     t0 = time.monotonic()
     fkeys = H.random_keys(F_POS * (F_LAMBDA + 1) + F_QUERIES, seed=42)
     pos, neg = fkeys[:F_POS], fkeys[F_POS:F_POS * (F_LAMBDA + 1)]
     queries = np.random.default_rng(7).choice(fkeys, size=F_QUERIES,
                                               replace=True)
-    builds = {}
-
-    def timed(name, make):
-        t = time.monotonic()
-        f = make()
-        builds[name] = time.monotonic() - t
-        return f
-
-    fbloom = timed("bloom", lambda: BloomFilter.build(pos, 0.01, seed=11))
-    fxor = timed("xor", lambda: XorFilter.build(pos, 8, seed=12))
-    fexact = timed("exact", lambda: ExactBloomier.build(
-        pos[:F_POS // 2], neg[:F_POS], seed=13))
-    fchained = timed("chained", lambda: ChainedFilterAnd.build(pos, neg,
-                                                               seed=14))
-    fcascade = timed("cascade", lambda: ChainedFilterCascade.build(pos, neg,
-                                                                   seed=3))
-    filters = [fbloom, fxor, fexact, fchained, fcascade]
+    built = {n: f.result() for n, f in f_builds.items()}
+    f_pool.shutdown()
+    t_fwait = time.monotonic() - t0
+    builds = {n: s for n, (_, s, _) in built.items()}
+    t_fend = max(e for _, _, e in built.values()) - t_start
+    filters = [built[n][0] for n in F_BUILDS]
+    fbloom, fxor, fexact, fchained, fcascade = filters
+    t = time.monotonic()
     svc = FilterService(filters, device=dev)
     fstate = svc.state                      # the bank as built, for times
-    t_fbuild = time.monotonic() - t0
+    t_fsvc = time.monotonic() - t
     reset_counts()
     f_member, f_probes = svc.probe(queries)
     filter_launches = {k: kernels[k].launches for k in bank_kernels}
@@ -2113,10 +2301,14 @@ def main() -> None:
     print(f"filters: {F_POS} positives, lambda {F_LAMBDA}, bank "
           f"{svc.bank.nbytes / 1e6:.1f} MB, cascade {fcascade.n_layers} "
           f"layers, chained alpha {fchained.f1.alpha} with "
-          f"{fchained.n_false_pos} stage-2 whitelists | host build "
-          f"{t_fbuild:.1f} s (" + ", ".join(f"{k} {v:.1f}" for k, v in
-                                              builds.items())
-          + f") | probe of {F_QUERIES} queries: launches {filter_launches}, "
+          f"{fchained.n_false_pos} stage-2 whitelists | host build in five "
+          f"processes from {t_fstart:.1f} s to {t_fend:.1f} s of the run, "
+          f"beside phases 3-6 (which ended at {t0 - t_start:.1f} s), on "
+          f"{len(os.sched_getaffinity(0))} of the host's {os.cpu_count()} "
+          f"cores: seconds each (" + ", ".join(f"{k} {v:.1f}" for k, v in
+                                             builds.items())
+          + f"); phase 7 waited {t_fwait:.1f} s for them, then packed the "
+          f"bank in {t_fsvc:.1f} s | probe of {F_QUERIES} queries: launches {filter_launches}, "
           f"by path {filter_paths} (bloom_onchip.onchip_reason, "
           f"bloomier_onchip.onchip_reason: {filter_rule}; planes in one "
           f"block, bytes: " + json.dumps({k: None if p is None else
@@ -3149,6 +3341,7 @@ def main() -> None:
     faults = train_faults(run["losses"])
     check(not faults, f"train at full width: {faults}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    train_peak_gb = peak_gb                # phase 16 models this peak
     model, state = run["model"], run["state"]
     cfg = model.cfg
     # what the params and AdamW state hold on the card (phase 14's census
@@ -3671,6 +3864,17 @@ def main() -> None:
         q9[k] = q9.get(k, 0) + launches14[k]
     print(f"mesh phases 14 and 15: {time.monotonic() - t14:.0f} s | {card} "
           f"| total {time.monotonic() - t_start:.0f} s", flush=True)
+
+    # -- 16. the step trace beside the card's real step: on the host, in a
+    # subprocess started after phase 2 (a fake group cannot share this
+    # process's NCCL group); it launches no kernel
+    reset_counts()
+    trace_phase(traces, train_arg_bytes, train_peak_gb, card=card,
+                t_start=t_start)
+    launched = {name: fn.launches for name, fn in kernels.items()}
+    check(not any(launched.values()), f"the step traces launched {launched}")
+    print(f"trace phase 16 | total {time.monotonic() - t_start:.0f} s",
+          flush=True)
 
     q9["bloom_probe"] += sum(l["bloom_probe"] for l in pc10 + pc12 + pc13)
     q9["bloom_gather"] += sum(l["gather"] for l in pc10 + pc12 + pc13)

@@ -201,6 +201,7 @@ class Cell:
     device: torch.device
     mesh: object = None     # the mesh the specs are for (None: one device)
     arg_specs: tuple = ()   # partition specs, one tree per argument
+    shape: object = None    # the ShapeSpec of shape_name (smoke or full)
 
     def arg_local_bytes(self) -> dict:
         """Bytes of each argument group on one device: every byte without
@@ -299,4 +300,5 @@ def build_cell(arch: ArchDef, shape_name: str, *, device="cuda", mesh=None,
         arg_specs = (p_sp,) + arg_specs
     return Cell(arch_id=arch.arch_id, shape_name=shape_name, kind=s.kind,
                 step=fn, abstract_args=args, model=m,
-                device=torch.device(device), mesh=mesh, arg_specs=arg_specs)
+                device=torch.device(device), mesh=mesh, arg_specs=arg_specs,
+                shape=s)

@@ -277,36 +277,6 @@ def sharded_embed(table, tokens):
         device_mesh=mesh, redistribute_inputs=True)(table, tokens)
 
 
-def _product_placements(pa, pb, a_dim: int, b_dim: int):
-    """(a's, b's, the output's) placements on one mesh dim of ``a @ b``
-    (a [..., K], b [K, N]; or a [E, M, K], b [E, K, N]), given a's and
-    b's there (neither Partial): a dim of ``a`` split there keeps its
-    split (a batch dim; E beside b's E; K beside b's K, which gives a
-    ``Partial`` sum); otherwise b's split, with a's matching dim split to
-    meet it (a local slice, no transfer). A strided split (what a reshape
-    that merges a split dim into the one before it leaves) is gathered
-    first: ``local_map`` cannot place an output so."""
-    from torch.distributed.tensor import Partial, Replicate, Shard
-    k_a, k_b = a_dim - 1, b_dim - 2
-    pa, pb = (Replicate() if type(p) not in (Shard, Replicate) else p
-              for p in (pa, pb))
-    if pa.is_shard():
-        d = pa.dim
-        if d == k_a:
-            return pa, Shard(k_b), Partial()
-        if b_dim == 3 and d == 0:
-            return pa, Shard(0), Shard(0)
-        return pa, Replicate(), Shard(d)
-    if pb.is_shard():
-        d = pb.dim
-        if d == k_b:
-            return Shard(k_a), pb, Partial()
-        if b_dim == 3 and d == 0:
-            return Shard(0), pb, Shard(0)
-        return pa, pb, Shard(a_dim - 1)
-    return pa, pb, Replicate()
-
-
 def _matmul_local(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.dtype == torch.float32:
         return a @ b
@@ -315,21 +285,49 @@ def _matmul_local(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.float() @ b.float()
 
 
-def _sharded_matmul(a, b):
-    """``matmul_f32`` of DTensors under ``local_map``: each rank's product
-    is ``_matmul_local`` of its shards, placed by ``_product_placements``
-    on every mesh dim (a ``Partial`` input is summed first)."""
+def einsum(eq: str, *ops):
+    """``torch.einsum(eq, *ops)``; DTensors through ``_sharded_einsum``."""
+    if any(is_dtensor(o) for o in ops):
+        return _sharded_einsum(eq, *ops)
+    return torch.einsum(eq, *ops)
+
+
+def _sharded_einsum(eq: str, *ops, local=None):
+    """``torch.einsum`` of DTensors (``local(*shards)`` on each rank,
+    given ``local``) under ``local_map``: on each mesh dim the first
+    operand split there (a plain ``Shard``) names the split index; every
+    operand that has that index is split on it, the others whole (a
+    strided split, what a reshape that merges a split dim into the one
+    before it leaves, is gathered: ``local_map`` cannot place an output
+    so), and the output is split on it, or a ``Partial`` sum where it is
+    contracted (a ``Partial`` input is summed first). DTensor's own
+    einsum flattens merged indices first, which some torch versions
+    refuse where an inner one is split (a decode's head_dim-split ``wq``
+    [D, H, dh] at 16x16)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
-    mesh = (a if is_dtensor(a) else b).device_mesh
-    a, b = _no_partial(_on_mesh(a, mesh)), _no_partial(_on_mesh(b, mesh))
-    pl = [_product_placements(pa, pb, a.dim(), b.dim())
-          for pa, pb in zip(a.placements, b.placements)]
-    a_pl, b_pl, out_pl = ([p[i] for p in pl] for i in range(3))
+    subs, out = eq.replace(" ", "").split("->")
+    subs = subs.split(",")
+    mesh = next(o.device_mesh for o in ops if is_dtensor(o))
+    ops = [_no_partial(_on_mesh(o, mesh)) for o in ops]
+    in_pl, out_pl = [[] for _ in ops], []
+    for i in range(mesh.ndim):
+        idx = next((sub[o.placements[i].dim] for sub, o in zip(subs, ops)
+                    if type(o.placements[i]) is Shard), None)
+        for pl, sub in zip(in_pl, subs):
+            pl.append(Shard(sub.index(idx)) if idx is not None and idx in sub
+                      else Replicate())
+        out_pl.append(Replicate() if idx is None else
+                      Shard(out.index(idx)) if idx in out else Partial())
+    if local is None:
+        def local(*xs):
+            return torch.einsum(eq, *xs)
     return local_map(
-        _matmul_local, out_placements=out_pl, in_placements=(a_pl, b_pl),
-        in_grad_placements=(_grad_placements(a_pl, out_pl),
-                            _grad_placements(b_pl, out_pl)),
-        device_mesh=mesh, redistribute_inputs=True)(a, b)
+        local, out_placements=out_pl,
+        in_placements=tuple(in_pl),
+        in_grad_placements=tuple(_grad_placements(pl, out_pl)
+                                 for pl in in_pl),
+        device_mesh=mesh, redistribute_inputs=True)(*ops)
 
 
 def by_groups(fn, dims: list, args: tuple, in_dims: tuple,
@@ -465,9 +463,13 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     reference's ``preferred_element_type=jnp.float32``. On the card a
     bf16 product writes f32 directly (``out_dtype``) rather than widening
     ``b``, and its backward is ``_MatmulF32``'s. DTensors go through
-    ``_sharded_matmul`` (``out_dtype`` has no DTensor strategy)."""
+    ``_sharded_einsum`` with this product on each rank's shards
+    (``out_dtype`` has no DTensor strategy)."""
     if is_dtensor(a) or is_dtensor(b):
-        return _sharded_matmul(a, b)
+        batch = "abcdfgh"[:a.dim() - 1]
+        eq = ("emk,ekn->emn" if b.dim() == 3
+              else f"{batch}k,kn->{batch}n")
+        return _sharded_einsum(eq, a, b, local=_matmul_local)
     return _matmul_local(a, b)
 
 
@@ -566,23 +568,155 @@ def _vocab_parallel_nll(logits, labels):
 # ---------------------------------------------------------------------------
 
 def _gqa_scores(q, k):
-    """q [B,Sq,H,dh], k [B,Sk,Hkv,dh] -> scores [B,H,Sq,Sk] (f32)."""
-    B, Sq, H, dh = q.shape
-    Hkv = k.shape[2]
-    g = H // Hkv
-    qg = q.reshape(B, Sq, Hkv, g, dh)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
-    return s.reshape(B, Hkv * g, Sq, k.shape[1])
+    """q [B,Sq,H,dh], k [B,Sk,Hkv,dh] -> scores [B,H,Sq,Sk] (f32).
+    DTensors go through ``_sharded_gqa``."""
+    if is_dtensor(q) or is_dtensor(k):
+        return _sharded_gqa(_gqa_scores, q, k, _GQA_SCORES)
+    return _gqa_scores_local(q, k)
 
 
 def _gqa_out(p, v):
-    """p [B,H,Sq,Sk] f32, v [B,Sk,Hkv,dh] -> [B,Sq,H,dh] (f32)."""
+    """p [B,H,Sq,Sk] f32, v [B,Sk,Hkv,dh] -> [B,Sq,H,dh] (f32).
+    DTensors go through ``_sharded_gqa``."""
+    if is_dtensor(p) or is_dtensor(v):
+        return _sharded_gqa(_gqa_out, p, v, _GQA_OUT)
+    return _gqa_out_local(p, v)
+
+
+def _gqa_scores_local(q, k, kv_of=None):
+    """``_gqa_scores`` of one rank's shards. ``kv_of`` picks the kv heads
+    its q heads read (``_kv_heads_of``); None: all of them."""
+    B, Sq, H, dh = q.shape
+    if kv_of is not None:
+        k = _pick_heads(k, kv_of)
+    g = H // k.shape[2]
+    qg = q.reshape(B, Sq, k.shape[2], g, dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
+    return s.reshape(B, H, Sq, k.shape[1])
+
+
+def _gqa_out_local(p, v, kv_of=None):
+    """``_gqa_out`` of one rank's shards (``kv_of`` as for the scores)."""
     B, H, Sq, Sk = p.shape
-    Hkv = v.shape[2]
-    g = H // Hkv
-    pg = p.reshape(B, Hkv, g, Sq, Sk)
+    if kv_of is not None:
+        v = _pick_heads(v, kv_of)
+    g = H // v.shape[2]
+    pg = p.reshape(B, v.shape[2], g, Sq, Sk)
     o = torch.einsum("bhgqk,bkhd->bqhgd", pg.to(v.dtype).float(), v.float())
     return o.reshape(B, Sq, H, v.shape[3])
+
+
+def _kv_heads_of(first: int, n: int, g: int):
+    """The kv heads that x heads first .. first + n - 1 read (head h
+    reads h // g), as dim 2 of a whole kv is picked: a ``slice`` where
+    they are consecutive kv heads read by n / (their count) x heads each
+    (the plain grouping), else an index per x head."""
+    lo, hi = first // g, (first + n - 1) // g + 1
+    if n % (hi - lo) == 0 and all((first + j) // g == lo + j // (n // (hi - lo))
+                                  for j in range(n)):
+        return slice(lo, hi)
+    return torch.tensor([(first + j) // g for j in range(n)])
+
+
+def _pick_heads(t, kv_of):
+    if isinstance(kv_of, slice):
+        return t[:, :, kv_of]
+    return t.index_select(2, kv_of.to(t.device))
+
+
+# The dims of a GQA product by role: the heads operand x (q; p), the kv
+# operand (k; v) and the output (scores; o). "free_x" / "free_kv" are
+# each operand's own dim (Sq; Sk or dh), "sum" the contracted one.
+_GQA_SCORES = ({"batch": 0, "free_x": 1, "heads": 2, "sum": 3},
+               {"batch": 0, "free_kv": 1, "heads": 2, "sum": 3},
+               {"batch": 0, "heads": 1, "free_x": 2, "free_kv": 3})
+_GQA_OUT = ({"batch": 0, "heads": 1, "free_x": 2, "sum": 3},
+            {"batch": 0, "sum": 1, "heads": 2, "free_kv": 3},
+            {"batch": 0, "free_x": 1, "heads": 2, "free_kv": 3})
+
+
+def _gqa_placements(px, pkv, dims):
+    """(x's, kv's, the output's) placements on one mesh dim of a GQA
+    product, given x's and kv's there (neither Partial). The kv operand's
+    split on its own or the contracted dim wins (a decode's head_dim-split
+    cache is never gathered: x meets it, the scores come out ``Partial``);
+    else x's split stays, the kv operand meeting it (split beside it on
+    batch and heads when it already is, else whole); else the kv
+    operand's batch or heads split, x's dim meeting it."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    x_d, kv_d, out_d = dims
+
+    def role(p, d):
+        if isinstance(p, Shard):
+            return next(r for r, i in d.items() if i == p.dim)
+        return None
+    rx, rkv = role(px, x_d), role(pkv, kv_d)
+    whole = Replicate()
+    if rkv in ("free_kv", "sum"):
+        x_pl = Shard(x_d["sum"]) if rkv == "sum" else whole
+        return x_pl, pkv, Partial() if rkv == "sum" else Shard(out_d[rkv])
+    if rx is not None:
+        if rx == "sum":
+            return px, Shard(kv_d["sum"]), Partial()
+        kv_pl = (Shard(kv_d[rx]) if rx == "batch" or rx == rkv == "heads"
+                 else whole)
+        return px, kv_pl, Shard(out_d[rx])
+    if rkv is not None:
+        return Shard(x_d[rkv]), pkv, Shard(out_d[rkv])
+    return whole, whole, whole
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose gradient is made contiguous: DTensor's
+    backward of the projection before a ``local_map`` views its local
+    gradient, which a local einsum's backward may leave strided."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _sharded_gqa(fn, x, kv, dims):
+    """``_gqa_scores`` / ``_gqa_out`` of DTensors under ``local_map``,
+    placed by ``_gqa_placements`` on every mesh dim. Where x's heads are
+    split and the kv heads are whole (the rules replicate kv heads that
+    the ``model`` axis does not divide), each rank reads, for each of its
+    x heads h, kv head h // g of the whole kv; where both are split (the
+    heads of a rank's kv shard are those its x heads map to) and
+    elsewhere, the plain grouping of its shards."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = (x if is_dtensor(x) else kv).device_mesh
+    x, kv = _no_partial(_on_mesh(x, mesh)), _no_partial(_on_mesh(kv, mesh))
+    pl = [_gqa_placements(px, pkv, dims)
+          for px, pkv in zip(x.placements, kv.placements)]
+    x_pl, kv_pl, out_pl = ([p[i] for p in pl] for i in range(3))
+    h_x, h_kv = dims[0]["heads"], dims[1]["heads"]
+    n_heads, g = x.shape[h_x], x.shape[h_x] // kv.shape[h_kv]
+    x_split = [i for i, p in enumerate(x_pl) if p == Shard(h_x)]
+    kv_split = [i for i, p in enumerate(kv_pl) if p == Shard(h_kv)]
+    local = {_gqa_scores: _gqa_scores_local, _gqa_out: _gqa_out_local}[fn]
+    kv_of = None
+    if x_split and not kv_split:
+        # DTensor splits a dim over several mesh dims in mesh order
+        part = 0
+        for i in x_split:
+            n_heads //= mesh.size(i)
+            part = part * mesh.size(i) + mesh.get_local_rank(i)
+        kv_of = _kv_heads_of(part * n_heads, n_heads, g)
+
+    def run(a, b):
+        return local(_ContiguousGrad.apply(a), _ContiguousGrad.apply(b),
+                     kv_of)
+    return local_map(
+        run, out_placements=out_pl, in_placements=(x_pl, kv_pl),
+        in_grad_placements=(_grad_placements(x_pl, out_pl),
+                            _grad_placements(kv_pl, out_pl)),
+        device_mesh=mesh, redistribute_inputs=True)(x, kv)
 
 
 def dense_attention(q, k, v, *, causal: bool, q_chunk: int = 4096,
@@ -636,6 +770,15 @@ def dense_attention(q, k, v, *, causal: bool, q_chunk: int = 4096,
 # ---------------------------------------------------------------------------
 
 def swiglu(x, wi_gate, wi_up, wo):
+    """The SwiGLU MLP of x [..., D]. Over a mesh, an ``x`` that is a
+    partial sum (the norm of a residual that adds the attention's
+    head-split output) is summed first: given a partial ``x`` and the
+    ``mlp``-split weights, DTensor would gather the weights and run the
+    whole MLP on every ``model`` rank (the step trace showed it: 16x the
+    MLP's flops at 16x16), where the reference's constraints on ``h`` and
+    ``u`` keep each rank on its own columns."""
+    if is_dtensor(x):
+        x = _no_partial(x)
     h = x @ wi_gate.to(x.dtype)
     u = x @ wi_up.to(x.dtype)
     h = shard_activation(h, ("batch", "seq", "mlp"))

@@ -19,7 +19,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from repro_torch.sharding.ctx import place_tree, shard_activation
+from repro_torch.sharding.ctx import shard_activation, zeros_placed
 
 from . import common as C
 from .common import ParamSpec
@@ -141,7 +141,7 @@ class EncDecLM:
         return proj(xq, p["wq"]), proj(xkv, p["wk"]), proj(xkv, p["wv"])
 
     def _out(self, p, o, dtype):
-        return torch.einsum("bshk,hkd->bsd", o, p["wo"].to(dtype))
+        return C.einsum("bshk,hkd->bsd", o, p["wo"].to(dtype))
 
     def _mlp(self, p, x):
         h = C.matmul_f32(x, p["wi"].to(x.dtype))
@@ -219,8 +219,8 @@ class EncDecLM:
         tokens = batch["tokens"]
         B, S = tokens.shape
         memory = self.encode(params, batch["frames"])
-        caches = place_tree(self.empty_caches(B, max_len, device=tokens.device),
-                            self.cache_axes()["layers"])
+        caches = zeros_placed(lambda d: self.empty_caches(B, max_len, device=d),
+                              self.cache_axes()["layers"], tokens.device)
         x = C.embed_lookup(C.gather_weights(params["embed"]), tokens)
         x, caches = self._decoder(params, x, memory, caches=caches,
                                   cache_len=0)

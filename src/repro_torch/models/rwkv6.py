@@ -34,7 +34,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from repro_torch.sharding.ctx import place_tree, shard_activation
+from repro_torch.sharding.ctx import shard_activation, zeros_placed
 
 from . import common as C
 from .common import ParamSpec
@@ -211,7 +211,7 @@ class RWKV6LM:
         # per-head group norm then output proj
         yf = C.rms_norm(y.reshape(B, S, H * dh).to(x.dtype), tp["ln_x"])
         y = yf.reshape(B, S, H, dh) * F.silu(g.float()).to(x.dtype)
-        out = torch.einsum("bshk,hkd->bsd", y, tp["wo"].to(x.dtype))
+        out = C.einsum("bshk,hkd->bsd", y, tp["wo"].to(x.dtype))
         return out, x[:, -1, :], state
 
     def _chan_mix(self, cp, x, last_x):
@@ -280,9 +280,9 @@ class RWKV6LM:
     def prefill(self, params, batch, max_len: int):
         tokens = batch["tokens"]
         x = C.embed_lookup(C.gather_weights(params["embed"]), tokens)
-        x, caches = self._backbone(params, x, caches=place_tree(
-            self.init_caches(tokens.shape[0], device=tokens.device),
-            self.cache_axes()["layers"]))
+        x, caches = self._backbone(params, x, caches=zeros_placed(
+            lambda d: self.init_caches(tokens.shape[0], device=d),
+            self.cache_axes()["layers"], tokens.device))
         x = C.rms_norm(x, C.gather_weights(params["ln_f"]))
         logits = self._logits(params, x[:, -1:])
         return logits, {"layers": caches, "len": tokens.shape[1]}

@@ -28,7 +28,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from repro_torch.sharding.ctx import place_tree, shard_activation
+from repro_torch.sharding.ctx import shard_activation, zeros_placed
 
 from . import common as C
 from .common import ParamSpec
@@ -282,7 +282,7 @@ class Zamba2LM:
             s = s.masked_fill(invalid[None, None, None, :], -1e30)
             p = torch.softmax(s, dim=-1)
             o = C._gqa_out(p, cv).to(x.dtype)
-        a = torch.einsum("bshk,hkd->bsd", o, sp["attn"]["wo"].to(x.dtype))
+        a = C.einsum("bshk,hkd->bsd", o, sp["attn"]["wo"].to(x.dtype))
         x = x + a
         m = C.swiglu(C.rms_norm(x, sp["ln2"]), sp["mlp"]["wi_gate"],
                      sp["mlp"]["wi_up"], sp["mlp"]["wo"])
@@ -351,8 +351,8 @@ class Zamba2LM:
         tokens = batch["tokens"]
         B, S = tokens.shape
         pos = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
-        caches = place_tree(self.empty_caches(B, max_len, device=tokens.device),
-                            self.cache_axes()["layers"])
+        caches = zeros_placed(lambda d: self.empty_caches(B, max_len, device=d),
+                              self.cache_axes()["layers"], tokens.device)
         x = C.embed_lookup(C.gather_weights(params["embed"]), tokens)
         x, caches = self._backbone(params, x, pos, caches=caches, cache_len=0)
         x = C.rms_norm(x, C.gather_weights(params["ln_f"]))

@@ -21,7 +21,7 @@ from dataclasses import dataclass
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.sharding.ctx import place_tree, shard_activation
+from repro_torch.sharding.ctx import shard_activation, zeros_placed
 
 from . import common as C
 from .common import ParamSpec
@@ -202,9 +202,9 @@ class TransformerLM:
         if c.mla:
             return self._attn_mla(p, x, positions=positions, cache=cache,
                                   cache_len=cache_len)
-        q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
-        k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
-        v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
+        q = C.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+        k = C.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
+        v = C.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
         if c.qk_norm:
             q = C.rms_norm(q, p["q_norm"])
             k = C.rms_norm(k, p["k_norm"])
@@ -225,7 +225,7 @@ class TransformerLM:
             o = C.dense_attention(q, ck, cv, causal=True, q_chunk=self.q_chunk,
                                   q_offset=start, window=window,
                                   kv_valid_len=start + S)
-        y = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
+        y = C.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
         return y, cache
 
     def _attn_mla(self, p, x, *, positions, cache=None, cache_len=None):
@@ -259,7 +259,7 @@ class TransformerLM:
             qq = torch.cat([q_nope, q_rope], dim=-1)
             o = C.dense_attention(qq * math.sqrt((nd + rd) / qq.shape[-1]),
                                   kk, v, causal=True, q_chunk=self.q_chunk)
-            y = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
+            y = C.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
             return y, None
 
         start = cache_len
@@ -279,7 +279,7 @@ class TransformerLM:
         ctx = _f32_then_cast(pattn.reshape(B, H * S, Tc), cc)
         ctx = ctx.reshape(B, H, S, r).permute(0, 2, 1, 3)        # [B,S,H,r]
         o = _per_head(ctx, p["wv_b"].permute(1, 0, 2))           # [B,S,H,vd]
-        y = torch.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
+        y = C.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
         return y, cache
 
     def _mlp(self, lp, moe: bool, x):
@@ -364,8 +364,8 @@ class TransformerLM:
         tokens = batch["tokens"]
         B, S = tokens.shape
         pos = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
-        caches = place_tree(self.empty_caches(B, max_len, device=tokens.device),
-                            self.cache_axes()["layers"])
+        caches = zeros_placed(lambda d: self.empty_caches(B, max_len, device=d),
+                              self.cache_axes()["layers"], tokens.device)
         x = self._embed(params, tokens)
         x, caches = self._backbone(params, x, positions=pos, caches=caches,
                                    cache_len=0)

@@ -14,7 +14,7 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.sharding.ctx import place_tree
+from repro_torch.sharding.ctx import zeros_placed
 
 from . import common as C
 from .transformer import TransformerConfig, TransformerLM
@@ -72,9 +72,9 @@ class VLM:
         B, S = tokens.shape
         P = batch["patch_embeds"].shape[1]
         x = self._join(params, batch["patch_embeds"], tokens)
-        caches = place_tree(
-            self.lm.empty_caches(B, max_len, device=tokens.device),
-            self.cache_axes()["layers"])
+        caches = zeros_placed(
+            lambda d: self.lm.empty_caches(B, max_len, device=d),
+            self.cache_axes()["layers"], tokens.device)
         x, caches = self.lm._backbone(
             params, x, positions=self._positions(B, P + S, tokens.device),
             caches=caches, cache_len=0)

@@ -40,6 +40,21 @@ STEP_CASES = (
     ("deepseek_2x1", "deepseek-v2-lite-16b", (2, 1), "default", None),
     ("internvl_2x1", "internvl2-26b", (2, 1), "default", None),
 )
+# the grouped-query attention job, on 2 ranks: a (1, 2) mesh whose
+# 'model' axis does not divide the kv heads, so the rules replicate them
+# while the q heads split: 1 kv head for 8 q heads, and 3 kv heads for
+# 6 q heads (g = 2: rank 0's q heads read kv heads 0, 0, 1, rank 1's
+# 1, 2, 2)
+GQA_CASES = (
+    ("llama_kv1_1x2", "llama3.2-1b/kv1", (1, 2), "default", (12, 2)),
+    ("llama_kv1_1x2_hd", "llama3.2-1b/kv1", (1, 2), "head_dim", (12, 2)),
+    ("llama_kv3_1x2", "llama3.2-1b/kv3", (1, 2), "default", (12, 2)),
+)
+# an arch of a case that is not registered: (the registered arch, the
+# fields of its smoke config that differ)
+VARIANTS = {"llama3.2-1b/kv1": ("llama3.2-1b", {"n_kv_heads": 1}),
+            "llama3.2-1b/kv3": ("llama3.2-1b", {"n_heads": 6,
+                                                "n_kv_heads": 3})}
 # the other families: (1, 2) under DEFAULT_RULES, a train step, a
 # 12-token prefill and 2 decode steps
 FAMILY_CASES = (
@@ -229,17 +244,36 @@ def carried_opt(params, step: int = 10) -> dict:
             "step": np.int32(step)}
 
 
+def case_arch(arch_id: str, get_arch=None):
+    """The ``ArchDef`` of a case's arch (a variant's registered arch), from
+    the port's registry or the one ``get_arch`` reads."""
+    if get_arch is None:
+        from repro_torch.configs import get_arch
+    return get_arch(VARIANTS.get(arch_id, (arch_id,))[0])
+
+
+def case_model(arch_id: str, get_arch=None, **kw):
+    """The smoke model of a case's arch built with ``kw``, or None for a
+    registered arch (the cells build their own): a variant's smoke config
+    with its fields replaced, in the port's classes or those of the
+    registry ``get_arch`` reads."""
+    import dataclasses
+    if arch_id not in VARIANTS:
+        return None
+    m = case_arch(arch_id, get_arch).model(smoke=True, **kw)
+    return type(m)(dataclasses.replace(m.cfg, **VARIANTS[arch_id][1]), **kw)
+
+
 def step_inputs(model, arch_id: str, smoke_batch: int = 2) -> dict:
     """The numpy inputs of a STEP_CASES case: a ``train_4k`` batch at
     smoke width (2 x 32 tokens and labels, with the arch's modality
     inputs: a VLM's patch or an encoder's frame embeddings), a serve
     prompt of 2 x 12 tokens (the same modality inputs beside it) and the
     decode tokens."""
-    from repro_torch.configs import get_arch
     rng = np.random.default_rng(STEP_SEED + 1)
     vocab = getattr(model.cfg, "lm", model.cfg).vocab
     toks = rng.integers(0, vocab, (smoke_batch, 33)).astype(np.int32)
-    arch = get_arch(arch_id)
+    arch = case_arch(arch_id)
     extra = {k: (rng.normal(size=v.shape) * 0.25).astype(np.float32)
              for k, v in (arch.modality_inputs(model.cfg, smoke_batch, True)
                           if arch.modality_inputs else {}).items()}
@@ -266,11 +300,12 @@ def port_reference(arch_id: str, serve) -> dict:
     prefill and decode cells' steps, as {key: numpy} under the keys the
     rank jobs write after their tag."""
     import torch
-    from repro_torch.configs import get_arch
     from repro_torch.launch import steps
     from repro_torch.models import common as C
-    arch = get_arch(arch_id)
-    cell = steps.build_cell(arch, "train_4k", device="cpu", smoke=True)
+    arch = case_arch(arch_id)
+    cell = steps.build_cell(arch, "train_4k", device="cpu", smoke=True,
+                            model=case_model(arch_id, remat=True,
+                                             q_chunk=512))
     npp = np_params(cell.model, STEP_SEED)
     inp = step_inputs(cell.model, arch_id)
     p = C.params_from_numpy(npp, "cpu")
@@ -281,8 +316,11 @@ def port_reference(arch_id: str, serve) -> dict:
     out = keyed({"params": p2, "opt": o2, "grad": grads})
     out["loss"], out["grad_norm"] = float(met["loss"]), float(met["grad_norm"])
     if serve is not None:
-        pcell = steps.build_cell(arch, "prefill_32k", device="cpu", smoke=True)
-        dcell = steps.build_cell(arch, "decode_32k", device="cpu", smoke=True)
+        serving = case_model(arch_id, remat=True, q_chunk=1024)
+        pcell = steps.build_cell(arch, "prefill_32k", device="cpu", smoke=True,
+                                 model=serving)
+        dcell = steps.build_cell(arch, "decode_32k", device="cpu", smoke=True,
+                                 model=serving)
         lg, cache = pcell.step(p, serve_batch(inp, serve[0],
                                               torch.from_numpy))
         out["/prefill_logits"] = lg.numpy()
@@ -306,12 +344,13 @@ def jax_reference(arch_id: str, serve) -> dict:
     from repro.configs import get_arch as jax_get_arch
     from repro.launch import steps as JS
     from repro.launch.mesh import make_host_mesh
-    from repro_torch.configs import get_arch
     from repro_torch.launch import steps
-    jcell = JS.build_cell(jax_get_arch(arch_id), "train_4k", make_host_mesh(),
-                          smoke=True, donate=False)
+    jcell = JS.build_cell(case_arch(arch_id, jax_get_arch), "train_4k",
+                          make_host_mesh(), smoke=True, donate=False,
+                          model=case_model(arch_id, jax_get_arch, remat=True,
+                                           q_chunk=512))
     jm = jcell.model
-    model = get_arch(arch_id).model(smoke=True)
+    model = case_model(arch_id) or case_arch(arch_id).model(smoke=True)
     npp = np_params(model, STEP_SEED)
     inp = step_inputs(model, arch_id)
     jp = jax.tree.map(jnp.asarray, npp)
@@ -326,8 +365,9 @@ def jax_reference(arch_id: str, serve) -> dict:
         # the model's own prefill and decode_step, which the serving cells
         # wrap: under this JAX the prefill cell's explicit host-mesh axes
         # refuse its unannotated empty cache's update on the CPU
-        max_len = steps.build_cell(get_arch(arch_id), "prefill_32k",
-                                   device="meta", smoke=True).abstract_args[
+        max_len = steps.build_cell(case_arch(arch_id), "prefill_32k",
+                                   device="meta", smoke=True,
+                                   model=case_model(arch_id)).abstract_args[
                                        1]["tokens"].shape[1]
         lg, cache = jax.jit(lambda p_, b: jm.prefill(p_, b, max_len))(
             jp, serve_batch(inp, serve[0], jnp.asarray))
@@ -439,20 +479,23 @@ def _step_cases(cases, out):
     bytes of the placed arguments beside ``Cell.arg_local_bytes``
     (a decode cell's too, from bf16 params and an empty cache)."""
     import torch
-    from repro_torch.configs import get_arch
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.steps import build_cell, loss_and_grads, sharded
     from repro_torch.models import common as C
     from repro_torch.sharding.rules import (DEFAULT_RULES, SP_RULES, full_tree,
                                             local_bytes)
     C.set_compute_dtype(torch.float32)
-    rules_of = {"default": DEFAULT_RULES, "sp": SP_RULES}
+    rules_of = {"default": DEFAULT_RULES, "sp": SP_RULES,
+                "head_dim": DEFAULT_RULES.override(heads=None,
+                                                   head_dim="model")}
     for tag, arch_id, dims, rules_name, serve in cases:
         rules = rules_of[rules_name]
         mesh = make_mesh(dims, ("data", "model"), device="cpu")
-        arch = get_arch(arch_id)
+        arch = case_arch(arch_id)
         cell = build_cell(arch, "train_4k", device="cpu", mesh=mesh,
-                          rules=rules, smoke=True)
+                          rules=rules, smoke=True,
+                          model=case_model(arch_id, tp_divisor=dims[1],
+                                           remat=True, q_chunk=512))
         m = cell.model
         npp = np_params(m, STEP_SEED)
         inp = step_inputs(m, arch_id)
@@ -480,10 +523,12 @@ def _step_cases(cases, out):
         if serve is None:
             continue
         params = args[0]
+        serving = case_model(arch_id, tp_divisor=dims[1], remat=True,
+                             q_chunk=1024)
         pcell = build_cell(arch, "prefill_32k", device="cpu", mesh=mesh,
-                           rules=rules, smoke=True)
+                           rules=rules, smoke=True, model=serving)
         dcell = build_cell(arch, "decode_32k", device="cpu", mesh=mesh,
-                           rules=rules, smoke=True)
+                           rules=rules, smoke=True, model=serving)
         cache0 = C.tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype),
                             dcell.abstract_args[1])
         cache0["len"] = 0
@@ -596,6 +641,11 @@ def _steps_moe(rank, world, out):
     _products(out)
 
 
+def _steps_gqa(rank, world, out):
+    """The GQA_CASES: kv heads that the 'model' axis does not divide."""
+    _step_cases(GQA_CASES, out)
+
+
 def _steps_rwkv(rank, world, out):
     """The RWKV6 case of FAMILY_CASES."""
     _step_cases([c for c in FAMILY_CASES if c[1] == "rwkv6-7b"], out)
@@ -673,6 +723,7 @@ def main(argv) -> None:
     try:
         {"service": _service, "placements": _placements, "steps": _steps,
          "steps_moe": _steps_moe, "supervisor": _supervisor,
+         "steps_gqa": _steps_gqa,
          "steps_rwkv": _steps_rwkv, "steps_zamba2": _steps_zamba2,
          "steps_whisper": _steps_whisper}[job](rank, world, out)
     finally:

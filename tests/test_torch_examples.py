@@ -53,9 +53,37 @@ def test_huffman_compress_torch_runs_on_the_cpu(capsys):
                                                 for i in idx]
 
 
+def test_serve_lm_torch_runs_on_the_cpu(capsys):
+    """The reference's serving example on the port: 24 requests over 6
+    prompts through the prefix cache (the smoke llama at f32)."""
+    s = _load("serve_lm_torch").main(["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "[serve] arch=llama3.2-1b requests=24 tokens=192" in out
+    assert s["prefill_tokens_saved_frac"] > 0.5 and s["wasted_probes"] == 0
+
+
+def test_train_lm_torch_runs_on_the_cpu(capsys):
+    """The reference's training example on the port at 20 steps: a
+    failure injected at step 10 and resumed, the loss down."""
+    res = _load("train_lm_torch").main(["--steps", "20", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert res.n_restarts == 1 and res.final_step == 20
+    assert "survived 1 injected failure(s); final loss" in out
+    assert res.losses[-1] < res.losses[0]
+
+
 def test_examples_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is here: the default device is usable")
     for name in ("quickstart_torch", "huffman_compress_torch"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             _load(name).main(["--n", "200"])
+
+
+def test_lm_examples_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is here: the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _load("serve_lm_torch").main([])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _load("train_lm_torch").main(["--steps", "2"])

@@ -791,3 +791,24 @@ def test_sharded_steps_on_card_match_one_device(cuda, tmp_path, arch_id):
         torch.use_deterministic_algorithms(False)
         MC.set_compute_dtype(was)
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("shape_name", ["train_4k", "decode_32k"])
+def test_step_trace_of_llama_at_16x16_beside_the_card(cuda, shape_name):
+    """Phase 16's two 16x16 cells on the card's host: llama3.2-1b FULL
+    traced over a fake group of 256 ranks (``dryrun.traced_cell``,
+    ``meta`` tensors: no device memory), its grouped-query attention on
+    q heads split over 'model' and 8 kv heads that 16 does not divide;
+    the traced argument bytes equal the census's, and the step moves
+    collectives and has a liveness peak."""
+    from repro_torch.launch import dryrun, hbm_model, op_trace
+    from repro_torch.launch.mesh import make_production_mesh
+    before = torch.cuda.memory_allocated()
+    mesh = make_production_mesh()
+    cell, trace = dryrun.traced_cell("llama3.2-1b", shape_name, mesh)
+    census = dryrun.run_cell("llama3.2-1b", shape_name, mesh, "16x16",
+                             verbose=False)
+    assert trace.arg_bytes == census["memory_model"]["args"]
+    assert op_trace.collective_summary(trace)["count"] > 0
+    assert hbm_model.peak_hbm_bytes(trace) > 0 and trace.flops > 0
+    assert torch.cuda.memory_allocated() == before

@@ -10,7 +10,9 @@ llama's train step on (2, 1) and (1, 2) under ``DEFAULT_RULES`` and on
 (1, 2) under ``SP_RULES``, its prefill and 4 decode steps on (1, 2); the
 deepseek's (experts over ``model``) train step, prefill and 2 decode
 steps on (1, 2) and its train step on (2, 1); internvl2's train step on
-(2, 1); ``moe_block`` alone on (2, 1), its groups split over the data
+(2, 1); smoke llamas with one kv head, and with 3 kv heads for 6 q
+heads (``steps_gqa``: the ``model`` axis divides neither), on (1, 2);
+``moe_block`` alone on (2, 1), its groups split over the data
 ranks. Meanwhile this process runs the one-device port's cells and the
 JAX reference (``_torch_ranks.jax_reference``: its
 ``build_cell(..., make_host_mesh())`` train step, ``jax.grad`` of its
@@ -54,7 +56,7 @@ def _port_f32_compute():
 def started(tmp_path_factory):
     """Both rank jobs, started before the references are computed."""
     return [R.start_ranks(job, 2, tmp_path_factory.mktemp(job))
-            for job in ("steps", "steps_moe", "supervisor")]
+            for job in ("steps", "steps_moe", "supervisor", "steps_gqa")]
 
 
 def _inputs(arch_id):
@@ -76,7 +78,7 @@ def refs(started):
     its mesh; an arch's serve steps are those of its case that has
     some)."""
     serve_of: dict = {}
-    for tag, arch_id, *_, serve in R.STEP_CASES:
+    for tag, arch_id, *_, serve in R.STEP_CASES + R.GQA_CASES:
         serve_of[arch_id] = serve_of.get(arch_id) or serve
     was = C.COMPUTE_DTYPE
     C.set_compute_dtype(torch.float32)
@@ -111,6 +113,49 @@ def test_sharded_prefill_and_decode_match_one_device_and_the_reference(
     port, ref, serve = refs[CASES[tag][1]]
     assert int(ranks[f"{tag}/cache/len"]) == sum(serve)
     R.check_serve(ranks, tag, serve, [port, ref])
+
+
+@pytest.mark.parametrize("case", R.GQA_CASES, ids=lambda c: c[0])
+def test_sharded_steps_where_model_does_not_divide_the_kv_heads(
+        case, ranks, refs):
+    """Grouped-query attention with the q heads split over ``model`` and
+    the kv heads whole (1 or 3 kv heads on a (1, 2) mesh: the rules
+    replicate them): the train step, the prefill and 2 decode steps
+    against the one-device port and the JAX reference, every argument
+    and result placed by its spec (``common._sharded_gqa``: each rank's q
+    heads read the kv head each maps to)."""
+    tag, arch_id, dims, *_, serve = case
+    port, ref, _ = refs[arch_id]
+    assert port["/params/layers/0/attn/wk"].shape[1] % dims[1] != 0
+    R.check_train(ranks, tag, [port, ref])
+    R.check_serve(ranks, tag, serve, [port, ref])
+    R.check_placed(ranks, tag, serve)
+
+
+@pytest.mark.parametrize("first, n, g, want", [
+    (0, 4, 8, slice(0, 1)),           # 1 kv head, 8 q heads on 2 ranks
+    (4, 4, 8, slice(0, 1)),
+    (0, 4, 2, slice(0, 2)),           # whole groups: the plain grouping
+    (4, 4, 2, slice(2, 4)),
+    (0, 3, 2, [0, 0, 1]),             # 3 kv heads, 6 q heads on 2 ranks
+    (3, 3, 2, [1, 2, 2]),
+    (2, 2, 4, slice(0, 1)),           # part of one group
+    (1, 4, 2, [0, 1, 1, 2]),
+])
+def test_kv_heads_of_maps_each_q_head_to_its_kv_head(first, n, g, want):
+    """``common._kv_heads_of``: q heads ``first`` .. ``first + n - 1``
+    read kv head ``h // g`` each, as a slice where that is the plain
+    grouping of consecutive kv heads, else an index per q head."""
+    got = C._kv_heads_of(first, n, g)
+    if isinstance(want, slice):
+        assert got == want
+    else:
+        assert isinstance(got, torch.Tensor) and got.tolist() == want
+    # what the local product reads: each picked kv head for n / (their
+    # count) consecutive q heads
+    picked = C._pick_heads(torch.arange(8).reshape(1, 1, 8, 1), got)
+    read = picked.repeat_interleave(n // picked.shape[2], dim=2)
+    assert read.flatten().tolist() == [(first + j) // g for j in range(n)]
 
 
 @pytest.mark.parametrize("tag", list(CASES))
@@ -194,7 +239,8 @@ def test_shard_activation_without_and_within_a_context():
                 ctx.shard_activation(x, ("batch", None))
         assert ctx.current()[0] is outer
     assert ctx.current() is None
-    assert ctx.place_tree({"a": x}, {"a": ("batch", None)})["a"] is x
+    assert ctx.zeros_placed(lambda d: {"a": x}, {"a": ("batch", None)},
+                            "cpu")["a"] is x
 
 
 def test_one_device_steps_build_no_dtensor_and_enter_no_context():

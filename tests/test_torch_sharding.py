@@ -34,7 +34,7 @@ from repro.configs import REGISTRY as JREGISTRY  # noqa: E402
 from repro.sharding import rules as JR  # noqa: E402
 from repro_torch.configs import REGISTRY, get_arch  # noqa: E402
 from repro_torch.configs.base import SHAPES, applicable_shapes  # noqa: E402
-from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch import dryrun, op_trace  # noqa: E402
 from repro_torch.launch.mesh import (MeshShape, make_mesh,  # noqa: E402
                                      make_production_mesh)
 from repro_torch.launch.steps import (build_cell, param_specs_of,  # noqa: E402
@@ -289,7 +289,17 @@ def test_cell_rules_follow_the_reference():
         "model",)
 
 
-def test_dryrun_main_writes_one_json_per_cell(tmp_path, capsys):
+def test_dryrun_main_writes_one_json_per_cell(tmp_path, capsys,
+                                              monkeypatch):
+    # main traces each cell's step, which takes 1-178 s a whisper cell
+    # (smoke widths too: its train_4k at 2x16x16): here every cell's trace
+    # is an empty schedule beside the census's argument bytes, and
+    # tests/test_torch_step_trace.py holds a real traced cell's keys
+    def stub_trace(arch_id, shape_name, mesh, rules=None, **_):
+        cell = build_cell(REGISTRY[arch_id], shape_name, device="meta",
+                          mesh=mesh, rules=rules)
+        return cell, op_trace.StepTrace(arg_bytes=cell.arg_local_bytes())
+    monkeypatch.setattr(dryrun, "traced_cell", stub_trace)
     dryrun.main(["--arch", "whisper-tiny", "--mesh", "both",
                  "--out", str(tmp_path)])
     names = sorted(os.listdir(tmp_path))
@@ -299,14 +309,16 @@ def test_dryrun_main_writes_one_json_per_cell(tmp_path, capsys):
     rec = json.loads((tmp_path / names[0]).read_text())
     assert set(rec) == {"arch", "shape", "mesh", "kind", "n_devices",
                         "memory_model", "params_total", "params_active",
-                        "model_flops"}
+                        "model_flops", "cost", "collectives", "ops",
+                        "trace_s"}
     assert set(rec["memory_model"]) == {"args", "grads_est",
-                                        "remat_stash_est"}
+                                        "remat_stash_est", "transient_top4",
+                                        "liveness_peak", "total"}
     (tmp_path / names[0]).write_text("{}")
     dryrun.main(["--arch", "whisper-tiny", "--mesh", "both", "--out",
                  str(tmp_path), "--skip-existing", "--no-sp"])
     assert (tmp_path / names[0]).read_text() == "{}"
-    assert "all dry-run cells counted OK" in capsys.readouterr().out
+    assert "all dry-run cells traced OK" in capsys.readouterr().out
 
 
 # ------------------------------------------------- DTensor placements
