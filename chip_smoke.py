@@ -160,8 +160,8 @@ Phases, one line each; any failure exits non-zero and prints no result:
              at FULL width and depth, bf16 weights drawn leaf by leaf
              (the zero- and one-initialised leaves as a trained model
              holds them: ``draw_state_leaves``):
-             phase 10's ``serve_cell`` and ``serve_faults`` (16 requests
-             for zamba2, 8 for the other two, over the same 4 prompts; a
+             phase 10's ``serve_cell`` and ``serve_faults`` (8 requests
+             each over the same 4 prompts; a
              CPU twin's stats, bloom_probe by the route rule), decode
              against teacher forcing over 16 prompt tokens (every teacher
              prefill one chunk) at bf16 within TF_REL_BF16 (RWKV6 its
@@ -213,6 +213,27 @@ Phases, one line each; any failure exits non-zero and prints no result:
              traced (1, 1) params and AdamW bytes equal to phase 11's
              allocation, the modelled peak (args + liveness) beside
              phase 11's measured peak and their ratio; no kernel launched
+17. remat    each layer recomputed in the loss's backward
+             (``torch.utils.checkpoint``, the reference's remat of its
+             scanned FULL cells): zamba2-2.7b FULL (54 Mamba2 layers, the
+             shared block after every 6th) through
+             ``launch/train.build_trainer``, which builds it with remat,
+             3 steps at phase 11's shape (2 x 4,096, bf16 compute over
+             f32 master weights, AdamW): every loss finite, the loss of
+             step 0's batch after the third step below step 0's, host ms
+             a step, peak memory; beside them the step trace of the same
+             step on (1, 1) with remat and without
+             (``remat_traces``, on the host in a subprocess started after
+             phase 2 beside phase 16's, within REMAT_TRACE_LIMIT_S; the
+             step without remat is not run on the card): the traced
+             params and AdamW bytes equal to the trainer's allocation,
+             the modelled peak beside the measured one and their ratio;
+             then rwkv6-7b at FULL widths cut to 2 layers (the depth at
+             which its step without remat fits the card): a train step's
+             loss and gradients at 2 x 4,096 with remat, without, and with
+             it again, under deterministic algorithms, equal bit for bit,
+             each remat step's peak below the plain one's
+             (``remat_pair``); no kernel launched
 
 Then one JSON line of kernel records, the card line and the result line.
 Launch counts are set to 0 just before each path is driven and read just
@@ -799,14 +820,14 @@ def train_flops(cfg, batch: int, seq: int) -> tuple[float, float]:
 
 
 def train_run(device, *, smoke: bool, seq_len: int, batch: int,
-              n_steps: int) -> dict:
-    """``launch/train.build_trainer`` for llama3.2-1b, then ``n_steps``
-    calls of its ``step_fn`` from a fresh state: losses, host ms a step
-    (``float(loss)`` waits for the device), the last state, the model and
-    the pipeline."""
+              n_steps: int, arch: str = LM_ARCH) -> dict:
+    """``launch/train.build_trainer`` for ``arch`` (llama3.2-1b), then
+    ``n_steps`` calls of its ``step_fn`` from a fresh state: losses, host
+    ms a step (``float(loss)`` waits for the device), the last state, the
+    model and the pipeline."""
     from repro_torch.launch.train import build_trainer
     init_state, step_fn, model = build_trainer(
-        LM_ARCH, smoke=smoke, device=device, seq_len=seq_len, batch=batch)
+        arch, smoke=smoke, device=device, seq_len=seq_len, batch=batch)
     state = init_state()
     losses, ms = [], []
     for step in range(n_steps):
@@ -1032,12 +1053,13 @@ SSM_CPU_LAYERS = {"zamba2-2.7b": 6, "rwkv6-7b": 2, "whisper-tiny": None}
 # (16 + 15 tokens at most) is one chunk below 64, which the chunk assert
 # of _ssd_chunk / _chunk_wkv admits (65-79 tokens would be refused)
 SSM_TF_PROMPT = 16
-# requests of the serve cells (LM_REQUESTS for zamba2-2.7b, the phase's
-# headline): with 16 for all three the whole run took 917 s (NVIDIA H100
-# 80GB HBM3, 700 W), past the 900 s kept under the 1,200 s limit, so
-# rwkv6 and whisper serve 8 over the same 4 prompts (0.5 and 0.75 of the
-# prefill tokens saved)
-SSM_REQUESTS = {"rwkv6-7b": 8, "whisper-tiny": 8}
+# requests of the serve cells: with 16 for all three the whole run took
+# 917 s (NVIDIA H100 80GB HBM3, 700 W), past the 900 s kept under the
+# 1,200 s limit, so rwkv6 and whisper serve 8 over the same 4 prompts
+# (0.5 and 0.75 of the prefill tokens saved); with phase 17 added, a run
+# on a slow host took 1,053 s with zamba2 at 16 (~100 s of its serve
+# runs), so zamba2 serves 8 too
+SSM_REQUESTS = 8
 # the decode bound's extra bytes for an encoder-decoder: each decode
 # step recomputes every decoder layer's cross-attention K/V over the
 # encoder output, as the reference does: memory read once (2 B a value),
@@ -1828,11 +1850,12 @@ def trace_cells() -> list[dict]:
     return out
 
 
-def start_traces() -> subprocess.Popen:
-    """Start ``trace_cells`` in a subprocess (a fake process group cannot
-    share phase 14's process), its output in temporary files; it runs on
-    the host while the card's phases run, and is killed at exit if it
-    has not ended."""
+def start_traces(fn: str = "trace_cells") -> subprocess.Popen:
+    """Start ``chip_smoke.<fn>()`` (``trace_cells``, or phase 17's
+    ``remat_traces``) in a subprocess (a fake process group cannot share
+    phase 14's process), its output in temporary files; it runs on the
+    host while the card's phases run, and is killed at exit if it has not
+    ended."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [os.path.join(ROOT, "src")] + [p for p in [env.get("PYTHONPATH")]
@@ -1840,13 +1863,35 @@ def start_traces() -> subprocess.Popen:
     out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
     proc = subprocess.Popen(
         [sys.executable, "-c", "import json, time, chip_smoke; print(json."
-         "dumps({'cells': chip_smoke.trace_cells(), 't_end': time."
+         f"dumps({{'cells': chip_smoke.{fn}(), 't_end': time."
          "monotonic()}))"],
         cwd=ROOT, env=env, stdout=out, stderr=err, text=True)
     proc.files = (out, err)
     proc.t0 = time.monotonic()
     atexit.register(lambda: proc.poll() is None and proc.kill())
     return proc
+
+
+def trace_results(proc: subprocess.Popen, limit: float, what: str) -> tuple:
+    """The result of a ``start_traces`` subprocess, which must have ended
+    within ``limit`` s of its start (by its own end time; one still
+    running is waited for up to that deadline, then killed; any failure
+    fails the run) -> (its JSON result, its seconds, the seconds waited
+    here)."""
+    t = time.monotonic()
+    try:
+        proc.wait(timeout=max(1.0, limit - (t - proc.t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        fail(f"{what} did not end in {limit} s")
+    waited = time.monotonic() - t
+    out, err = (f.seek(0) or f.read() for f in proc.files)
+    check(proc.returncode == 0,
+          f"{what} failed (exit {proc.returncode}): {err[-3000:]}")
+    res = json.loads(out.strip().splitlines()[-1])
+    took = res["t_end"] - proc.t0
+    check(took <= limit, f"{what} took {took:.1f} s, over {limit} s")
+    return res, took, waited
 
 
 def trace_phase(proc: subprocess.Popen, train_arg_bytes: dict,
@@ -1860,20 +1905,8 @@ def trace_phase(proc: subprocess.Popen, train_arg_bytes: dict,
     exactly; its modelled peak (args + liveness) printed beside phase
     11's measured peak ``train_peak_gb``, with their ratio. ``t_start``:
     the run's start, to print when the traces ran. -> the records."""
-    t = time.monotonic()
-    try:
-        proc.wait(timeout=max(1.0, TRACE_LIMIT_S - (t - proc.t0)))
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        fail(f"the step traces did not end in {TRACE_LIMIT_S} s")
-    waited = time.monotonic() - t
-    out, err = (f.seek(0) or f.read() for f in proc.files)
-    check(proc.returncode == 0,
-          f"the step traces failed (exit {proc.returncode}): {err[-3000:]}")
-    res = json.loads(out.strip().splitlines()[-1])
-    recs, took = res["cells"], res["t_end"] - proc.t0
-    check(took <= TRACE_LIMIT_S,
-          f"the step traces took {took:.1f} s, over {TRACE_LIMIT_S} s")
+    res, took, waited = trace_results(proc, TRACE_LIMIT_S, "the step traces")
+    recs = res["cells"]
     t_start = proc.t0 if t_start is None else t_start
     for r in recs:
         coll = r["collectives"]
@@ -1903,6 +1936,142 @@ def trace_phase(proc: subprocess.Popen, train_arg_bytes: dict,
           f"{TRACE_LIMIT_S} s), phase 16 waited {waited:.1f} s for it | "
           f"{card}", flush=True)
     return recs
+
+
+# -- phase 17: remat, each layer recomputed in the loss's backward --------
+# zamba2-2.7b FULL (54 Mamba2 layers, the shared block after every 6th)
+# trained at phase 11's shape: build_trainer builds it with remat, as the
+# reference's build_cell builds its FULL cells; and rwkv6-7b at FULL widths
+# cut to REMAT_RWKV_LAYERS, the depth at which its step without remat still
+# fits the card (the step trace models 66.3 GB for 2 layers without remat,
+# some 27 GB more a layer), one step with remat and one without
+REMAT_ARCH, REMAT_STEPS = "zamba2-2.7b", 3
+REMAT_RWKV, REMAT_RWKV_LAYERS = "rwkv6-7b", 2
+# zamba2's train step traced on the host with remat and without, in a
+# subprocess of its own started beside phase 16's (the two trace ~1.2M
+# and ~0.8M ops, 283-393 s on the card's host: over phase 16's
+# TRACE_LIMIT_S), which must end within REMAT_TRACE_LIMIT_S of its start
+# (phase 17 starts 700-950 s into the run)
+REMAT_TRACE_LIMIT_S = 900
+
+
+def remat_traces(*, smoke: bool = False, batch: int = TRAIN_BATCH,
+                 seq: int = TRAIN_SEQ) -> list[dict]:
+    """Phase 17's traces, on the host: zamba2-2.7b FULL's (with ``smoke``,
+    its smoke config's) train step as ``build_trainer`` builds it, on
+    (1, 1) at ``batch`` x ``seq``, with remat and without, each traced
+    over a fake group (``launch.dryrun.traced_cell``, resized by
+    ``resized_cell``) -> one record each: remat, argument bytes by group,
+    the liveness peak, its largest values, ops, seconds."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun, hbm_model
+    from repro_torch.launch.mesh import MeshShape
+    out = []
+    for remat in (True, False):
+        m = get_arch(REMAT_ARCH).model(smoke=smoke, remat=remat,
+                                       q_chunk=512)
+        _, tr = dryrun.traced_cell(
+            REMAT_ARCH, "train_4k", MeshShape((1, 1), ("data", "model")),
+            smoke=smoke, model=m, wrap=lambda c: resized_cell(c, batch, seq))
+        out.append({"remat": remat, "arg_bytes": tr.arg_bytes,
+                    "liveness": hbm_model.peak_hbm_bytes(tr),
+                    "top": [list(r) for r in hbm_model.peak_report(tr, 3)],
+                    "ops": tr.n_ops, "trace_s": tr.seconds})
+    return out
+
+
+def remat_pair(device, *, n_layers: int = REMAT_RWKV_LAYERS,
+               batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
+               smoke: bool = False, seed: int = 0) -> dict:
+    """rwkv6-7b at its FULL widths cut to ``n_layers`` (the smoke config
+    with ``smoke``), f32 weights from a seed on ``device`` (the zero- and
+    one-initialised leaves drawn as phase 13 draws them), one batch of
+    ``batch`` x ``seq`` seeded tokens: a train step's loss and gradients
+    (forward and backward at the compute dtype) with remat, without it,
+    and with it again (its host time warm), under torch's deterministic
+    algorithms -> the losses, whether the plain step's and the second
+    remat step's loss and every gradient leaf equal the first remat
+    step's bit for bit (the leaves that differ, the largest difference),
+    host ms of each step, and on the card the peak memory each step
+    allocated above what was allocated before it."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import common as MC
+    base = get_arch(REMAT_RWKV).model(smoke=smoke)
+    cfg = replace(base.cfg, n_layers=n_layers)
+    specs = type(base)(cfg).param_specs()
+    params = draw_state_leaves(specs, MC.init_from_specs(
+        specs, torch.Generator(device).manual_seed(seed), device),
+        SSM_STATE_SEED)
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (batch, seq + 1)).astype(np.int32)).to(device)
+    b = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    cuda = torch.device(device).type == "cuda"
+    runs = []
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        for remat in (True, False, True):
+            m = type(base)(cfg, chunk=base.chunk, remat=remat)
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+            t = time.perf_counter()
+            loss, grads = loss_and_grads(m, params, b)
+            if cuda:
+                torch.cuda.synchronize()
+            runs.append({
+                "loss": loss, "grads": MC.tree_leaves(grads),
+                "ms": (time.perf_counter() - t) * 1e3,
+                "peak_gb": ((torch.cuda.max_memory_allocated() - held) / 1e9
+                            if cuda else None)})
+    finally:
+        torch.use_deterministic_algorithms(was)
+    first = runs[0]
+    differ = [(j, i) for j, r in enumerate(runs[1:], 1)
+              for i, (a, g) in enumerate(zip(first["grads"], r["grads"]))
+              if not torch.equal(a, g)]
+    return {"layers": n_layers, "batch": batch, "seq": seq,
+            "losses": [float(r["loss"]) for r in runs],
+            "loss_equal": all(torch.equal(first["loss"], r["loss"])
+                              for r in runs[1:]),
+            "leaves": len(first["grads"]), "differ": differ,
+            "max_diff": max((float((first["grads"][i] - runs[j]["grads"][i])
+                                   .abs().max()) for j, i in differ),
+                            default=0.0),
+            "ms": [r["ms"] for r in runs],
+            "peak_gb": [r["peak_gb"] for r in runs]}
+
+
+def remat_train_faults(losses: list, again: float) -> list[str]:
+    """Phase 17's train run: every loss finite, and the loss of step 0's
+    batch after the last step (``again``) below step 0's."""
+    if not all(math.isfinite(x) for x in losses + [again]):
+        return [f"a loss is not finite: {losses}, then {again}"]
+    if not again < losses[0]:
+        return [f"the loss of step 0's batch did not fall: {losses[0]} -> "
+                f"{again}"]
+    return []
+
+
+def remat_faults(pair: dict) -> list[str]:
+    """What phase 17 holds ``remat_pair``'s result to: the losses and
+    every gradient leaf equal bit for bit, and (on the card) each remat
+    step's peak below the plain step's."""
+    faults = []
+    if not pair["loss_equal"]:
+        faults.append(f"losses {pair['losses']} differ")
+    if pair["differ"]:
+        faults.append(f"gradient leaves (step, leaf) {pair['differ']} of "
+                      f"{pair['leaves']} differ, by up to "
+                      f"{pair['max_diff']}")
+    on, off, again = pair["peak_gb"]
+    if on is not None and not max(on, again) < off:
+        faults.append(f"the remat steps' peaks {on:.2f}, {again:.2f} GB "
+                      f"are not below the plain step's {off:.2f} GB")
+    return faults
 
 
 def main() -> None:
@@ -2047,11 +2216,13 @@ def main() -> None:
         for s, log in sorted(_build.build_logs.items()))
     print(f"build: {sorted(libs)} in {time.monotonic() - t0:.1f} s | {regs}",
           flush=True)
-    # the host work of phases 7 and 16, started now beside the card's
-    # phases: phase 7's five filter builds and phase 16's step traces
+    # the host work of phases 7, 16 and 17, started now beside the card's
+    # phases: phase 7's five filter builds, phase 16's step traces and
+    # phase 17's traces of zamba2's train step
     t_fstart = time.monotonic() - t_start
     f_pool, f_builds = start_filter_builds()
     traces = start_traces()
+    remat_proc = start_traces("remat_traces")
 
     # -- 3. kernels vs plain at the edge shapes ------------------------------
     reset_counts()
@@ -3682,7 +3853,7 @@ def main() -> None:
               f"{arch_id} FULL has {n_params} parameters, its specs "
               f"{n_spec} ({ {str(a.dtype) for a in leaves} })")
         init_gb = torch.cuda.max_memory_allocated() / 1e9
-        n_req = SSM_REQUESTS.get(arch_id, LM_REQUESTS)
+        n_req = SSM_REQUESTS
         cell = serve_cell(model, params, dev, n_requests=n_req,
                           reset=reset_counts, read=bloom_launches,
                           extra=extra)
@@ -3875,6 +4046,89 @@ def main() -> None:
     check(not any(launched.values()), f"the step traces launched {launched}")
     print(f"trace phase 16 | total {time.monotonic() - t_start:.0f} s",
           flush=True)
+
+    # -- 17. remat: zamba2-2.7b FULL trains with each layer recomputed in
+    # the backward, beside the step trace of the same step with remat and
+    # without (on the host, in the subprocess started after phase 2; the
+    # step without remat is not run on the card); rwkv6-7b cut to
+    # REMAT_RWKV_LAYERS: its remat step equals its plain step bit for bit
+    t17 = time.monotonic()
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    run = train_run(dev, smoke=False, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH,
+                    n_steps=REMAT_STEPS, arch=REMAT_ARCH)
+    remat_s = time.perf_counter() - t
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(run["model"].remat, f"build_trainer built {REMAT_ARCH} without "
+          "remat")
+    # the three losses are of three batches, whose spread at this size
+    # (~0.01) is the first steps' gain: the loss of step 0's batch is
+    # taken again after the last step, which must be below step 0's
+    b0 = {k: torch.from_numpy(v).to(dev) for k, v in
+          SyntheticLMData(run["data"].cfg).batch(0).items()}
+    with torch.no_grad():
+        again = float(run["model"].loss(run["state"]["params"], b0))
+    faults = remat_train_faults(run["losses"], again)
+    check(not faults, f"{REMAT_ARCH} train with remat: {faults}")
+    held = {k: sum(a.numel() * a.element_size()
+                   for a in MC.tree_leaves(run["state"][k]))
+            for k in ("params", "opt")}
+    zcfg, losses, step_ms = run["model"].cfg, run["losses"], run["ms"]
+    del run, b0
+    res, took, waited = trace_results(remat_proc, REMAT_TRACE_LIMIT_S,
+                                      "the remat traces")
+    recs = {r["remat"]: r for r in res["cells"]}
+    got = {k: recs[True]["arg_bytes"][k] for k in ("params", "opt")}
+    check(got == held, f"traced {REMAT_ARCH} train args {got} B != the "
+          f"trainer's allocation {held} B")
+    args_b = sum(recs[True]["arg_bytes"].values())
+    modelled = {k: (sum(r["arg_bytes"].values()) + r["liveness"]) / 1e9
+                for k, r in recs.items()}
+    print(f"remat: {REMAT_ARCH} FULL ({zcfg.n_layers} Mamba2 layers, "
+          f"d_model {zcfg.d_model}, the shared block after every "
+          f"{zcfg.shared_every}th) through launch/train.build_trainer with "
+          f"remat (each Mamba2 layer and each shared-block application "
+          f"recomputed in the backward), bf16 compute, AdamW f32 | seq "
+          f"{TRAIN_SEQ}, batch {TRAIN_BATCH}, {REMAT_STEPS} steps in "
+          f"{remat_s:.1f} s: loss {[round(x, 4) for x in losses]}, on step "
+          f"0's batch after them {again:.4f} | host ms "
+          f"a step {[round(x, 1) for x in step_ms]} (step 0 warms up) | "
+          f"peak device memory allocated {peak_gb:.2f} GB; the step trace's "
+          f"modelled peak of the same step (args {args_b} B, params and "
+          f"AdamW == the trainer's allocation, + liveness "
+          f"{recs[True]['liveness']} B) {modelled[True]:.2f} GB: ratio "
+          f"{modelled[True] / peak_gb:.3f}; without remat (traced only) "
+          f"{modelled[False]:.2f} GB, liveness {recs[False]['liveness']} B; "
+          f"largest live at the remat peak "
+          f"{[(b, n) for b, n, _ in recs[True]['top']]}, without "
+          f"{[(b, n) for b, n, _ in recs[False]['top']]} | traces "
+          f"{recs[True]['ops']} / {recs[False]['ops']} ops in "
+          f"{recs[True]['trace_s']:.1f} / {recs[False]['trace_s']:.1f} s, "
+          f"their process ran from {remat_proc.t0 - t_start:.1f} s to "
+          f"{res['t_end'] - t_start:.1f} s of the run ({took:.1f} s, limit "
+          f"{REMAT_TRACE_LIMIT_S} s), waited {waited:.1f} s | {card}",
+          flush=True)
+    pair = remat_pair(dev)
+    faults = remat_faults(pair)
+    check(not faults, f"{REMAT_RWKV} remat against plain: {faults}")
+    print(f"remat: {REMAT_RWKV} FULL widths cut to {pair['layers']} layers, "
+          f"f32 weights from a seed, bf16 compute, a train step (forward "
+          f"and backward) at batch {pair['batch']} x seq {pair['seq']} with "
+          f"remat (each layer and each 64-token WKV chunk recomputed), "
+          f"without, and with it again, deterministic algorithms: losses "
+          f"{pair['losses']} equal bit for bit, {pair['leaves']} gradient "
+          f"leaves equal bit for bit | peak allocated above what each step "
+          f"found held {pair['peak_gb'][0]:.2f} GB with remat, "
+          f"{pair['peak_gb'][1]:.2f} GB without, "
+          f"{pair['peak_gb'][2]:.2f} GB with again | host ms "
+          f"{[round(x, 1) for x in pair['ms']]} (the first step warms up) | "
+          f"{card}", flush=True)
+    launched = {name: fn.launches for name, fn in kernels.items()}
+    check(not any(launched.values()), f"the remat phase launched {launched}")
+    print(f"remat phase 17: {time.monotonic() - t17:.0f} s | total "
+          f"{time.monotonic() - t_start:.0f} s", flush=True)
 
     q9["bloom_probe"] += sum(l["bloom_probe"] for l in pc10 + pc12 + pc13)
     q9["bloom_gather"] += sum(l["gather"] for l in pc10 + pc12 + pc13)

@@ -63,10 +63,10 @@ def _reduced_model(arch, depth: int, tp: int, kind: str):
         return TransformerLM(cfg, tp_divisor=tp, q_chunk=q_chunk, remat=remat)
     if isinstance(full, RWKV6LM):
         cfg = dataclasses.replace(full.cfg, n_layers=depth)
-        return RWKV6LM(cfg, chunk=full.chunk)
+        return RWKV6LM(cfg, chunk=full.chunk, remat=remat)
     if isinstance(full, Zamba2LM):
         cfg = dataclasses.replace(full.cfg, n_layers=depth)
-        return Zamba2LM(cfg, chunk=full.chunk, q_chunk=q_chunk)
+        return Zamba2LM(cfg, chunk=full.chunk, q_chunk=q_chunk, remat=remat)
     if isinstance(full, EncDecLM):
         cfg = dataclasses.replace(full.cfg, n_layers=depth)
         return EncDecLM(cfg, tp_divisor=tp, q_chunk=q_chunk)

@@ -285,11 +285,12 @@ def _matmul_local(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.float() @ b.float()
 
 
-def einsum(eq: str, *ops):
-    """``torch.einsum(eq, *ops)``; DTensors through ``_sharded_einsum``."""
+def einsum(eq: str, *ops, local=None):
+    """``torch.einsum(eq, *ops)``, or ``local(*ops)`` computing it, given
+    ``local``; DTensors through ``_sharded_einsum``."""
     if any(is_dtensor(o) for o in ops):
-        return _sharded_einsum(eq, *ops)
-    return torch.einsum(eq, *ops)
+        return _sharded_einsum(eq, *ops, local=local)
+    return local(*ops) if local else torch.einsum(eq, *ops)
 
 
 def _sharded_einsum(eq: str, *ops, local=None):

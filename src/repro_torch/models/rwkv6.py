@@ -24,15 +24,21 @@ and stay as the reference has them.
 
 Channel mixing: token-shift lerp + squared-ReLU MLP with a sigmoid gate.
 Layers are unrolled and ``cache["len"]`` is a host int. ``scan_layers`` is
-refused. The reference applies ``remat`` to scanned layers only, so the
-port takes no ``remat``.
+refused. ``remat`` recomputes each layer in the loss's backward
+(``torch.utils.checkpoint``), the unrolled form of the reference's remat
+of its scanned layers (the FULL cells scan, ``remat=True``); inside a
+layer each chunk of the scan is recomputed too, so its backward holds one
+chunk's [B,T,T,H,dh] decays at a time. Prefill and decode run as without
+it.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.sharding.ctx import shard_activation, zeros_placed
 
@@ -70,13 +76,39 @@ class RWKV6Config:
         return self.param_count()
 
 
-def _chunk_wkv(r, k, v, lw, u, state0, chunk: int):
+def _wkv_chunk(r_, k_, v_, lw_, u, state, earlier):
+    """One chunk of ``_chunk_wkv``: r_, k_, v_, lw_ [B,T,H,dh] f32, u
+    [1,1,H,dh], state [B,H,dh,dh] f32, ``earlier`` the [1,T,T,1,1] mask of
+    s < t. Returns (y [B,T,H,dh], the state after the chunk)."""
+    clw = torch.cumsum(lw_, dim=1)                          # inclusive
+    clw_prev = clw - lw_                                    # exclusive
+    clw_L = clw[:, -1:]                                     # [B,1,H,dh]
+    # intra-chunk scores from the exponent difference, masked before exp
+    gap = clw_prev[:, :, None] - clw[:, None, :]            # [B,T,T,H,dh]
+    decay = torch.exp(gap.masked_fill(~earlier, float("-inf")))
+    A = torch.einsum("bthd,btshd,bshd->bhts", r_, decay, k_)
+    diag = torch.einsum("bthd,bthd->bth", r_, u * k_)
+    y = torch.einsum("bhts,bshd->bthd", A, v_)
+    y = y + diag[..., None] * v_
+    # cross-chunk: r̃_t = r_t ⊙ e^{clw_prev}
+    y = y + torch.einsum("bthk,bhkv->bthv", r_ * torch.exp(clw_prev), state)
+    # state update: S1 = e^{clw_L} ⊙_k S0 + k̂ᵀ V, k̂ = k ⊙ e^{clw_L - clw}
+    k_hat = k_ * torch.exp(clw_L - clw)
+    state = torch.exp(clw_L)[:, 0, :, :, None] * state + torch.einsum(
+        "bthk,bthv->bhkv", k_hat, v_)
+    return y, state
+
+
+def _chunk_wkv(r, k, v, lw, u, state0, chunk: int, recompute: bool = False):
     """Chunked RWKV6 recurrence.
 
     r,k,v: [B,S,H,dh] (dk == dv == dh), lw: [B,S,H,dh] log-decays (< 0),
     u: [H,dh] bonus, state0: [B,H,dh,dh] f32. Returns (y [B,S,H,dh] f32,
     state [B,H,dh,dh]). S must be a multiple of ``min(chunk, S)``. Each
-    chunk holds a [B,T,T,H,dh] transient of pairwise decays.
+    chunk holds a [B,T,T,H,dh] transient of pairwise decays; with
+    ``recompute`` each chunk is recomputed in the backward
+    (``torch.utils.checkpoint``), so the backward holds one chunk's
+    transients at a time, with the same values.
     """
     B, S, H, dh = r.shape
     T = min(chunk, S)
@@ -87,28 +119,14 @@ def _chunk_wkv(r, k, v, lw, u, state0, chunk: int):
     earlier = torch.tril(torch.ones(T, T, dtype=torch.bool, device=r.device),
                          diagonal=-1)[None, :, :, None, None]    # s < t
     u = u.float()[None, None]
+    step = (functools.partial(checkpoint, _wkv_chunk, use_reentrant=False)
+            if recompute else _wkv_chunk)
 
     state = state0.float()
     ys = []
     for i in range(n):
-        r_, k_, v_, lw_ = rc[:, i], kc[:, i], vc[:, i], lwc[:, i]  # [B,T,H,dh]
-        clw = torch.cumsum(lw_, dim=1)                      # inclusive
-        clw_prev = clw - lw_                                # exclusive
-        clw_L = clw[:, -1:]                                 # [B,1,H,dh]
-        # intra-chunk scores from the exponent difference, masked before exp
-        gap = clw_prev[:, :, None] - clw[:, None, :]        # [B,T,T,H,dh]
-        decay = torch.exp(gap.masked_fill(~earlier, float("-inf")))
-        A = torch.einsum("bthd,btshd,bshd->bhts", r_, decay, k_)
-        diag = torch.einsum("bthd,bthd->bth", r_, u * k_)
-        y = torch.einsum("bhts,bshd->bthd", A, v_)
-        y = y + diag[..., None] * v_
-        # cross-chunk: r̃_t = r_t ⊙ e^{clw_prev}
-        y = y + torch.einsum("bthk,bhkv->bthv", r_ * torch.exp(clw_prev),
-                             state)
-        # state update: S1 = e^{clw_L} ⊙_k S0 + k̂ᵀ V, k̂ = k ⊙ e^{clw_L - clw}
-        k_hat = k_ * torch.exp(clw_L - clw)
-        state = torch.exp(clw_L)[:, 0, :, :, None] * state + torch.einsum(
-            "bthk,bthv->bhkv", k_hat, v_)
+        y, state = step(rc[:, i], kc[:, i], vc[:, i], lwc[:, i], u, state,
+                        earlier)
         ys.append(y)
     return torch.stack(ys, dim=1).reshape(B, S, H, dh), state
 
@@ -121,13 +139,14 @@ def _token_shift(x, last):
 
 class RWKV6LM:
     def __init__(self, cfg: RWKV6Config, chunk: int = 64,
-                 scan_layers: bool = False):
+                 scan_layers: bool = False, remat: bool = False):
         if scan_layers:
             raise NotImplementedError(
                 "scan_layers=True is not ported to repro_torch; see "
                 "ROADMAP.md, Queue 1 item 7")
         self.cfg = cfg
         self.chunk = chunk
+        self.remat = remat                      # per-layer rematerialization
 
     # ------------------------------------------------------------- params
     def _layer_specs_one(self):
@@ -185,8 +204,9 @@ class RWKV6LM:
             B, S, *tp["w0"].shape).float()
         return -torch.exp(torch.clamp(raw, -8.0, 4.0)) - 1e-6   # strictly < 0
 
-    def _time_mix(self, tp, x, last_x, state0):
-        """x [B,S,D] -> (y [B,S,D], new_last_x [B,D], state)."""
+    def _time_mix(self, tp, x, last_x, state0, recompute=False):
+        """x [B,S,D] -> (y [B,S,D], new_last_x [B,D], state). With
+        ``recompute`` the scan recomputes each chunk in the backward."""
         c = self.cfg
         B, S, D = x.shape
         H, dh = c.n_heads, c.head_dim
@@ -206,8 +226,10 @@ class RWKV6LM:
         # (the cumsum's backward is a flipped cumsum, which DTensor does
         # not shard on every torch)
         y, state = C.by_rows_and_heads(
-            _chunk_wkv, (r, k, v, lw, tp["u"], state0, self.chunk),
-            ((0, 2),) * 4 + ((None, 0), (0, 1), None), ((0, 2), (0, 1)))
+            _chunk_wkv,
+            (r, k, v, lw, tp["u"], state0, self.chunk, recompute),
+            ((0, 2),) * 4 + ((None, 0), (0, 1), None, None),
+            ((0, 2), (0, 1)))
         # per-head group norm then output proj
         yf = C.rms_norm(y.reshape(B, S, H * dh).to(x.dtype), tp["ln_x"])
         y = yf.reshape(B, S, H, dh) * F.silu(g.float()).to(x.dtype)
@@ -220,7 +242,9 @@ class RWKV6LM:
         xr = x + (xx - x) * cp["mu_r"][None, None].to(x.dtype)
         k = C.matmul_f32(xk, cp["wk"].to(x.dtype))
         k = torch.square(torch.relu(k)).to(x.dtype)
-        kv = k @ cp["wv"].to(x.dtype)
+        # over a mesh each rank contracts its own `mlp` columns (a partial
+        # sum); DTensor's own product gathered them in the backward
+        kv = C.einsum("bsf,fd->bsd", k, cp["wv"].to(x.dtype))
         r = C.matmul_f32(xr, cp["wr"].to(x.dtype))
         return torch.sigmoid(r).to(x.dtype) * kv, x[:, -1, :]
 
@@ -232,12 +256,18 @@ class RWKV6LM:
                 "s": torch.zeros((B, c.n_heads, c.head_dim, c.head_dim),
                                  dtype=torch.float32, device=device)}
 
-    def _layer_apply(self, lp, x, cache):
-        """One layer and the boundary constraint (over a mesh, its weights
-        gathered on the data-parallel axes)."""
+    def _layer_apply(self, lp, x, cache, recompute=False):
+        """One layer and the boundary constraints (over a mesh, its weights
+        gathered on the data-parallel axes, and its input whole on the
+        sequence, as the transformer's layer takes it: a sequence split
+        left by the ``seq_save`` boundary would otherwise name the
+        projections' split and gather their head-split weights, so every
+        ``model`` rank would scan all heads)."""
         lp = C.gather_weights(lp)
+        x = shard_activation(x, ("batch", "seq", None))
         h, nxt, s1 = self._time_mix(lp["time"], C.rms_norm(x, lp["ln1"]),
-                                    cache["xt"].to(x.dtype), cache["s"])
+                                    cache["xt"].to(x.dtype), cache["s"],
+                                    recompute)
         x = x + h
         h, nxc = self._chan_mix(lp["chan"], C.rms_norm(x, lp["ln2"]),
                                 cache["xc"].to(x.dtype))
@@ -248,6 +278,13 @@ class RWKV6LM:
         B = x.shape[0]
         new_caches = []
         for i, lp in enumerate(params["layers"]):
+            if caches is None and self.remat:
+                def f(lp, x):
+                    zero = self._zero_cache(B, x.dtype, x.device)
+                    return self._layer_apply(lp, x, zero, recompute=True)[0]
+                x = checkpoint(f, lp, x, use_reentrant=False)
+                new_caches.append(None)
+                continue
             cache = (self._zero_cache(B, x.dtype, x.device) if caches is None
                      else caches[i])
             x, nc = self._layer_apply(lp, x, cache)

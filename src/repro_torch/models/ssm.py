@@ -17,8 +17,11 @@ attention + SwiGLU, parameters shared) applied after every
 its decode cache is a ring of ``min(max_len, attn_window)`` slots.
 
 Layers are unrolled and ``cache["len"]`` is a host int. ``scan_layers``
-is refused, as ``TransformerLM`` refuses it. The reference applies
-``remat`` to scanned layers only, so the port takes no ``remat``.
+is refused, as ``TransformerLM`` refuses it. ``remat`` recomputes each
+Mamba2 layer and each application of the shared block in the loss's
+backward (``torch.utils.checkpoint``), the unrolled form of the
+reference's remat of its scanned groups (the FULL cells scan,
+``remat=True``). Prefill and decode run as without it.
 """
 from __future__ import annotations
 
@@ -27,8 +30,9 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.sharding.ctx import shard_activation, zeros_placed
+from repro_torch.sharding.ctx import is_dtensor, shard_activation, zeros_placed
 
 from . import common as C
 from .common import ParamSpec
@@ -143,6 +147,27 @@ def _causal_conv(x, w, cache):
     return y, xp[:, -(K - 1):, :] if K > 1 else cache
 
 
+def _split_on_ranks(t) -> bool:
+    """Whether ``t`` is a DTensor split over more than one rank on its
+    last dim."""
+    from torch.distributed.tensor import Shard
+    return is_dtensor(t) and any(
+        p == Shard(t.dim() - 1) and t.device_mesh.size(i) > 1
+        for i, p in enumerate(t.placements))
+
+
+def _split_last(t, sizes: list) -> tuple:
+    """``torch.split(t, sizes, dim=-1)`` of a DTensor, gathered whole on
+    its last dim first where it is split there (its shards do not fall
+    at the parts' bounds)."""
+    from torch.distributed.tensor import Replicate, Shard
+    want = [Replicate() if p == Shard(t.dim() - 1) else p
+            for p in t.placements]
+    if want != list(t.placements):
+        t = t.redistribute(t.device_mesh, want)
+    return torch.split(t, sizes, dim=-1)
+
+
 def _softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``, log(1 + e^x) = logaddexp(x, 0) everywhere
     (torch's ``F.softplus`` turns linear above 20)."""
@@ -153,7 +178,7 @@ class Zamba2LM:
     """Mamba2 stack + shared attention block; pure Mamba2 if shared_every=0."""
 
     def __init__(self, cfg: Mamba2Config, chunk: int = 64, q_chunk: int = 2048,
-                 scan_layers: bool = False):
+                 scan_layers: bool = False, remat: bool = False):
         if scan_layers:
             raise NotImplementedError(
                 "scan_layers=True is not ported to repro_torch; see "
@@ -161,6 +186,7 @@ class Zamba2LM:
         self.cfg = cfg
         self.chunk = chunk
         self.q_chunk = q_chunk
+        self.remat = remat                      # per-layer rematerialization
 
     # ------------------------------------------------------------- params
     def param_specs(self):
@@ -202,12 +228,16 @@ class Zamba2LM:
         c = self.cfg
         B, S, D = x.shape
         Di, N, H, dh = c.d_inner, c.ssm_state, c.ssm_heads, c.head_dim
-        zxbcdt = _f32_then_cast(x, lp["in_proj"])
-        z, xin, b, cm, dt = torch.split(zxbcdt, [Di, Di, N, N, H], dim=-1)
-        xbc = torch.cat([xin, b, cm], dim=-1)
-        xbc, new_conv = _causal_conv(xbc, lp["conv_w"], conv_cache)
-        xbc = F.silu(xbc.float()).to(x.dtype)
-        xin, b, cm = torch.split(xbc, [Di, N, N], dim=-1)
+        if S > 1 and _split_on_ranks(lp["in_proj"]):
+            z, xin, b, cm, dt, new_conv = self._mamba_in_parts(lp, x,
+                                                               conv_cache)
+        else:
+            zxbcdt = _f32_then_cast(x, lp["in_proj"])
+            z, xin, b, cm, dt = torch.split(zxbcdt, [Di, Di, N, N, H], dim=-1)
+            xbc = torch.cat([xin, b, cm], dim=-1)
+            xbc, new_conv = _causal_conv(xbc, lp["conv_w"], conv_cache)
+            xbc = F.silu(xbc.float()).to(x.dtype)
+            xin, b, cm = torch.split(xbc, [Di, N, N], dim=-1)
 
         dt = _softplus(dt.float() + lp["dt_bias"][None, None].float())
         dt = torch.clamp(dt, 1e-4, 8.0)                        # [B,S,H]
@@ -227,6 +257,38 @@ class Zamba2LM:
         out = y @ lp["out_proj"].to(x.dtype)
         return out, new_conv, state1
 
+    def _mamba_in_parts(self, lp, x, conv_cache):
+        """``_mamba``'s input projection and causal conv over a mesh that
+        splits the in_proj, part by part: the fused in_proj's parts (z, x,
+        B, C, dt) and the conv's (x, B, C), each a product or a depthwise
+        conv of its own, so z, x and dt keep the ``ssm_inner`` split (whole
+        heads on each ``model`` rank), which the fused output's split, cut
+        at the parts' bounds, loses: DTensor gathers that [B, S, 2Di + 2N
+        + H] output whole. The
+        parts gather the [D, 2Di + 2N + H] weight instead, for a train or
+        prefill step; a decode step keeps the fused product, whose
+        one-token output costs less to gather than the weight. The same
+        values as the fused path, the gradients summed in another order.
+        -> (z, x, B, C, dt, the conv tail [B, K-1, Di + 2N])."""
+        c = self.cfg
+        Di, N, H = c.d_inner, c.ssm_state, c.ssm_heads
+        inner, whole = "ssm_inner", None
+        w_in = _split_last(lp["in_proj"].to(x.dtype), [Di, Di, N, N, H])
+        z, xin, b, cm, dt = (
+            _f32_then_cast(x, shard_activation(w, (None, ax)))
+            for w, ax in zip(w_in, (inner, inner, whole, whole, inner)))
+        conv_ax = (inner, whole, whole)
+        w_conv = _split_last(lp["conv_w"], [Di, N, N])
+        tails = ((None,) * 3 if conv_cache is None else
+                 [shard_activation(t, ("batch", None, ax)) for t, ax in
+                  zip(_split_last(conv_cache, [Di, N, N]), conv_ax)])
+        convs = [_causal_conv(t, shard_activation(w, (None, ax)), tail)
+                 for t, w, tail, ax in zip((xin, b, cm), w_conv, tails,
+                                           conv_ax)]
+        xin, b, cm = (F.silu(y.float()).to(x.dtype) for y, _ in convs)
+        return (z, xin, b, cm, dt,
+                torch.cat([tail for _, tail in convs], dim=-1))
+
     # ------------------------------------------------- shared attn block
     def _shared_block(self, sp, x, positions, cache, cache_len):
         """Sliding-window GQA with a ring cache of A = min(max_len,
@@ -240,6 +302,7 @@ class Zamba2LM:
         B, S, D = x.shape
         dh = c.dh_attn
         sp = C.gather_weights(sp)
+        x = shard_activation(x, ("batch", "seq", None))
         h = C.rms_norm(x, sp["ln1"])
         q = _f32_then_cast(h, sp["attn"]["wq"].reshape(D, -1)).reshape(
             B, S, c.n_heads, dh)
@@ -296,8 +359,11 @@ class Zamba2LM:
         return [i for i in range(c.n_layers) if i % c.shared_every == c.shared_every - 1]
 
     def _mamba_layer(self, lp, x, mcache):
-        """One mamba block with its residual and the boundary constraint
-        (over a mesh, its weights gathered on the data-parallel axes)."""
+        """One mamba block with its residual and the boundary constraints
+        (over a mesh, its weights gathered on the data-parallel axes and
+        its input whole on the sequence, as the transformer's layer takes
+        it: a sequence split would gather the conv's input whole, every
+        ``model`` rank then scanning all heads)."""
         c = self.cfg
         if mcache is None:
             cc = None
@@ -307,6 +373,7 @@ class Zamba2LM:
         else:
             cc, s0 = mcache["conv"], mcache["s"]
         lp = C.gather_weights(lp)
+        x = shard_activation(x, ("batch", "seq", None))
         h, nc, s1 = self._mamba(lp, C.rms_norm(x, lp["ln"]), cc, s0)
         x = shard_activation(x + h, ("batch", "seq_save", None))
         return x, {"conv": nc, "s": s1}
@@ -315,16 +382,27 @@ class Zamba2LM:
         pts = set(self._shared_points())
         new_caches = {"mamba": [], "attn": []}
         ai = 0
+        remat = caches is None and self.remat
         for i, lp in enumerate(params["layers"]):
-            mc = None if caches is None else caches["mamba"][i]
-            x, nc = self._mamba_layer(lp, x, mc)
-            new_caches["mamba"].append(nc)
-            if i in pts:
-                ac = None if caches is None else caches["attn"][ai]
-                x, nac = self._shared_block(params["shared"], x, positions,
-                                            ac, cache_len)
-                new_caches["attn"].append(nac)
-                ai += 1
+            if remat:
+                x = checkpoint(lambda lp, x: self._mamba_layer(lp, x, None)[0],
+                               lp, x, use_reentrant=False)
+            else:
+                mc = None if caches is None else caches["mamba"][i]
+                x, nc = self._mamba_layer(lp, x, mc)
+                new_caches["mamba"].append(nc)
+            if i not in pts:
+                continue
+            if remat:
+                x = checkpoint(lambda sp, x: self._shared_block(
+                    sp, x, positions, None, None)[0], params["shared"], x,
+                    use_reentrant=False)
+                continue
+            ac = None if caches is None else caches["attn"][ai]
+            x, nac = self._shared_block(params["shared"], x, positions,
+                                        ac, cache_len)
+            new_caches["attn"].append(nac)
+            ai += 1
         return x, new_caches
 
     def _logits(self, params, x):

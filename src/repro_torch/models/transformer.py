@@ -114,6 +114,25 @@ def _per_head(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.reshape(H, B, S, -1).permute(1, 2, 0, 3)
 
 
+def _latent_scores(q, c):
+    """MLA's absorbed scores: q [B,S,H,r], c [B,Tc,r] -> [B,H,S,Tc] f32,
+    the reference's ``einsum("bshr,btr->bhst",
+    preferred_element_type=f32)`` as one batched product of the (h, s)
+    rows (over a mesh, run on each rank's own heads by ``C.einsum``)."""
+    B, S, H, r = q.shape
+    s = C.matmul_f32(q.permute(0, 2, 1, 3).reshape(B, H * S, r),
+                     c.transpose(1, 2))
+    return s.reshape(B, H, S, c.shape[1])
+
+
+def _latent_context(p, c):
+    """p [B,H,S,Tc], c [B,Tc,r] -> [B,S,H,r] f32: the reference's
+    ``einsum("bhst,btr->bshr", preferred_element_type=f32)``."""
+    B, H, S, Tc = p.shape
+    ctx = C.matmul_f32(p.reshape(B, H * S, Tc), c)
+    return ctx.reshape(B, H, S, c.shape[2]).permute(0, 2, 1, 3)
+
+
 def _cache_write(buf: torch.Tensor, new: torch.Tensor,
                  start: int) -> torch.Tensor:
     """A copy of the cache ``buf`` with ``new`` at ``start`` along the
@@ -267,17 +286,18 @@ class TransformerLM:
         cr = _cache_write(cache["krope"], k_rope, start)
         cache = {"ckv": cc, "krope": cr}
         Tc = cc.shape[1]
-        # absorbed scores: q_nope into the latent space once a step
+        # absorbed scores: q_nope into the latent space once a step; the
+        # heads stay a dim of their own (over a mesh, split on `model`)
         q_lat = _per_head(q_nope, p["wk_b"].permute(1, 2, 0))   # [B,S,H,r]
-        s = (C.matmul_f32(q_lat.reshape(B, S * H, r), cc.transpose(1, 2))
-             + C.matmul_f32(q_rope.reshape(B, S * H, rd), cr.transpose(1, 2)))
-        s = s.reshape(B, S, H, Tc).permute(0, 2, 1, 3) * scale  # [B,H,S,Tc]
+        s = (C.einsum("bshr,btr->bhst", q_lat, cc, local=_latent_scores)
+             + C.einsum("bshr,btr->bhst", q_rope, cr, local=_latent_scores)
+             ) * scale                                           # [B,H,S,Tc]
         kpos = torch.arange(Tc, device=x.device)
         qpos = start + torch.arange(S, device=x.device)
         s = s.masked_fill((kpos[None, :] > qpos[:, None])[None, None], -1e30)
         pattn = torch.softmax(s, dim=-1).to(x.dtype)
-        ctx = _f32_then_cast(pattn.reshape(B, H * S, Tc), cc)
-        ctx = ctx.reshape(B, H, S, r).permute(0, 2, 1, 3)        # [B,S,H,r]
+        ctx = C.einsum("bhst,btr->bshr", pattn, cc,
+                       local=_latent_context).to(x.dtype)        # [B,S,H,r]
         o = _per_head(ctx, p["wv_b"].permute(1, 0, 2))           # [B,S,H,vd]
         y = C.einsum("bshk,hkd->bsd", o, p["wo"].to(x.dtype))
         return y, cache

@@ -37,6 +37,7 @@ STEP_CASES = (
     ("llama_1x2", "llama3.2-1b", (1, 2), "default", (12, 4)),
     ("llama_1x2_sp", "llama3.2-1b", (1, 2), "sp", None),
     ("deepseek_1x2", "deepseek-v2-lite-16b", (1, 2), "default", (12, 2)),
+    ("deepseek_1x2_sp", "deepseek-v2-lite-16b", (1, 2), "sp", (12, 2)),
     ("deepseek_2x1", "deepseek-v2-lite-16b", (2, 1), "default", None),
     ("internvl_2x1", "internvl2-26b", (2, 1), "default", None),
 )
@@ -55,14 +56,20 @@ GQA_CASES = (
 VARIANTS = {"llama3.2-1b/kv1": ("llama3.2-1b", {"n_kv_heads": 1}),
             "llama3.2-1b/kv3": ("llama3.2-1b", {"n_heads": 6,
                                                 "n_kv_heads": 3})}
-# the other families: (1, 2) under DEFAULT_RULES, a train step, a
-# 12-token prefill and 2 decode steps
+# the other families: (1, 2) under DEFAULT_RULES (and rwkv6 under
+# SP_RULES too, whose sequence-split layer boundaries the train cells
+# take), a train step, a 12-token prefill and 2 decode steps
 FAMILY_CASES = (
     ("zamba2_1x2", "zamba2-2.7b", (1, 2), "default", (12, 2)),
     ("rwkv6_1x2", "rwkv6-7b", (1, 2), "default", (12, 2)),
+    ("rwkv6_1x2_sp", "rwkv6-7b", (1, 2), "sp", (12, 2)),
     ("whisper_1x2", "whisper-tiny", (1, 2), "default", (12, 2)),
 )
 STEP_SEED = 2
+# the families whose steps on a 1-rank mesh are held to one device's bit
+# for bit (the card test's archs)
+ONE_RANK_ARCHS = ("llama3.2-1b", "deepseek-v2-lite-16b", "zamba2-2.7b",
+                  "rwkv6-7b", "whisper-tiny")
 # the MoE block alone on (world, 1), the deepseek-v2-lite smoke's
 # widths: batch x seq tokens, and group sizes that make 2 groups of 128
 # (on 2 ranks each routes its own; the expert most tokens choose drops
@@ -661,6 +668,50 @@ def _steps_whisper(rank, world, out):
     _step_cases([c for c in FAMILY_CASES if c[1] == "whisper-tiny"], out)
 
 
+def _one_rank(rank, world, out):
+    """The CPU twin of the card's ``test_sharded_steps_on_card_match_one_
+    device``: each ONE_RANK_ARCHS smoke model (no remat, bf16 compute
+    from f32 params drawn from a seed) on a 1-rank (1, 1) mesh against
+    one device: whether the train step's loss, params and AdamW state,
+    and a 12-token prefill's and 2 decode steps' logits are equal bit for
+    bit."""
+    import warnings
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import (make_prefill_step,
+                                          make_serve_step, make_train_step)
+    from repro_torch.models import common as C
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    C.set_compute_dtype(torch.bfloat16)
+    mesh = make_host_mesh("cpu")
+    for arch_id in ONE_RANK_ARCHS:
+        m = get_arch(arch_id).model(smoke=True)
+        p = C.init_from_specs(m.param_specs(),
+                              torch.Generator().manual_seed(0), "cpu")
+        inp = step_inputs(m, arch_id)
+        batch = {k: torch.from_numpy(v) for k, v in inp["batch"].items()}
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            one, sh = (make_train_step(m, AdamWConfig(), **kw)(
+                p, adamw_init(p), batch) for kw in ({}, {"mesh": mesh}))
+        out[f"{arch_id}_train_equal"] = torch.equal(
+            one[2]["loss"], sh[2]["loss"]) and all(
+            torch.equal(a, b.full_tensor()) for a, b in
+            zip(C.tree_leaves(one[:2]), C.tree_leaves(sh[:2])))
+        bp = C.tree_map(lambda t: t.to(torch.bfloat16), p)
+        prompt = serve_batch(inp, 12, torch.from_numpy)
+        (lg1, c1), (lg2, c2) = (make_prefill_step(m, 16, **kw)(bp, prompt)
+                                for kw in ({}, {"mesh": mesh}))
+        equal = torch.equal(lg1, lg2)
+        for i in range(2):
+            step = torch.from_numpy(inp["decode"][i])
+            lg1, c1 = make_serve_step(m)(bp, c1, step)
+            lg2, c2 = make_serve_step(m, mesh=mesh)(bp, c2, step)
+            equal = equal and torch.equal(lg1, lg2)
+        out[f"{arch_id}_serve_equal"] = equal
+
+
 def _supervisor(rank, world, out):
     """``build_trainer(mesh=)`` of the smoke llama (f32) under the
     supervisor on (2, 1): SUP_STEPS steps uninterrupted, then again with a
@@ -725,7 +776,8 @@ def main(argv) -> None:
          "steps_moe": _steps_moe, "supervisor": _supervisor,
          "steps_gqa": _steps_gqa,
          "steps_rwkv": _steps_rwkv, "steps_zamba2": _steps_zamba2,
-         "steps_whisper": _steps_whisper}[job](rank, world, out)
+         "steps_whisper": _steps_whisper,
+         "one_rank": _one_rank}[job](rank, world, out)
     finally:
         dist.destroy_process_group()
     np.savez(os.path.join(directory, f"{job}_rank{rank}.npz"), **out)

@@ -9,7 +9,9 @@ run ``build_cell(..., mesh=)`` steps from numpy weights at f32: the
 llama's train step on (2, 1) and (1, 2) under ``DEFAULT_RULES`` and on
 (1, 2) under ``SP_RULES``, its prefill and 4 decode steps on (1, 2); the
 deepseek's (experts over ``model``) train step, prefill and 2 decode
-steps on (1, 2) and its train step on (2, 1); internvl2's train step on
+steps on (1, 2) under ``DEFAULT_RULES`` and ``SP_RULES`` (MLA's absorbed
+scores split over ``model`` by head) and its train step on (2, 1);
+internvl2's train step on
 (2, 1); smoke llamas with one kv head, and with 3 kv heads for 6 q
 heads (``steps_gqa``: the ``model`` axis divides neither), on (1, 2);
 ``moe_block`` alone on (2, 1), its groups split over the data

@@ -315,7 +315,9 @@ def test_unported_training_configs_are_refused(what):
     """The training path refuses what the port does not have: scanned
     layers (with remat; a VLM's backbone asked to scan, through
     ``build_cell``; and the SSM hybrid's and RWKV6's layers, which
-    ``build_trainer`` of zamba2-2.7b otherwise builds)."""
+    ``build_trainer`` of zamba2-2.7b otherwise builds). Both take
+    ``remat``, off by default as in the reference, in its unrolled
+    form."""
     if what == "scan":
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             TransformerLM(SMOKE, remat=True, scan_layers=True)
@@ -334,7 +336,7 @@ def test_unported_training_configs_are_refused(what):
         cfg = get_arch(arch_id).model(smoke=True).cfg
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             cls(cfg, scan_layers=True)
-        assert "remat" not in inspect.signature(cls).parameters
+        assert inspect.signature(cls).parameters["remat"].default is False
     _, _, m = train.build_trainer(what, smoke=True, device="cpu")
     assert isinstance(m, Zamba2LM)
 
